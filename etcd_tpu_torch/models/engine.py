@@ -1,0 +1,177 @@
+"""Batched engine: node rounds + message exchange (etcd_tpu/models/engine.py).
+
+Fleet layout is clusters-minor, as in the JAX package: every state leaf is
+[M, feature..., C] and the stored wire is FLAT — dense [from, K*to(*E), C],
+or compacted [B, to(*E), C] under ``RaftConfig.compact_wire`` — with int16
+leaves under ``RaftConfig.wire_int16``. The node axis of the batched round
+is the member axis, so the outbox a round writes is the [from, K, to, (E,)
+C] delivery view; the keep-mask zeroes the type of dropped slots and the
+compaction kernel packs the survivors into the next inbox.
+"""
+from __future__ import annotations
+
+import torch
+
+from etcd_tpu_torch.kernels.compact_wire import compact_wire_carry
+from etcd_tpu_torch.models.raft import node_round
+from etcd_tpu_torch.models.state import NodeState, init_node
+from etcd_tpu_torch.types import (
+    ENT_FIELDS,
+    PORTED_CLASSES,
+    Msg,
+    Spec,
+    empty_msg,
+)
+from etcd_tpu_torch.utils.config import RaftConfig
+from etcd_tpu_torch.utils.device import resolve_device
+
+
+def _unflatten_inbox(spec: Spec, msgs: Msg) -> Msg:
+    """[from, K*to(*E), C] -> [from, K, to, (E,) C] (a view)."""
+    M, K, E = spec.M, spec.K, spec.E
+
+    def f(name, x):
+        if name in ENT_FIELDS:
+            return x.view(M, K, M, E, x.shape[-1])
+        return x.view(M, K, M, x.shape[-1])
+    return msgs.map(f)
+
+
+def _flatten_inbox(spec: Spec, msgs: Msg) -> Msg:
+    """Inverse of :func:`_unflatten_inbox`."""
+    M, K, E = spec.M, spec.K, spec.E
+
+    def f(name, x):
+        n = K * M * (E if name in ENT_FIELDS else 1)
+        return x.reshape(M, n, x.shape[-1])
+    return msgs.map(f)
+
+
+def _unflatten_compact(spec: Spec, msgs: Msg) -> Msg:
+    """Compact storage [B, to(*E), C] -> receiver view [B, to, (E,) C]."""
+    M, E = spec.M, spec.E
+
+    def f(name, x):
+        if name in ENT_FIELDS:
+            return x.view(x.shape[0], M, E, x.shape[-1])
+        return x
+    return msgs.map(f)
+
+
+def to_wire(m: Msg) -> Msg:
+    """int32 -> int16 at the round boundary (RaftConfig.wire_int16)."""
+    return m.map(lambda _, x: x.to(torch.int16) if x.dtype == torch.int32 else x)
+
+
+def from_wire(m: Msg) -> Msg:
+    return m.map(lambda _, x: x.to(torch.int32) if x.dtype == torch.int16 else x)
+
+
+def empty_inbox(spec: Spec, C: int, wire_int16: bool = False,
+                compact_bound: int = 0, device=None) -> Msg:
+    """Zeroed flat inbox: [from, K*to(*E), C] leaves, or the compacted
+    [B, to(*E), C] form when ``compact_bound`` > 0."""
+    dev = resolve_device(device)
+    B = min(compact_bound, spec.K * spec.M)
+
+    def mk(name, x):
+        e = spec.E if name in ENT_FIELDS else 1
+        dt = torch.int16 if wire_int16 and x.dtype == torch.int32 else x.dtype
+        shape = (B, spec.M * e, C) if B else (spec.M, spec.K * spec.M * e, C)
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    return empty_msg(spec, (1, 1), dev).map(mk)
+
+
+def inbox_bytes_per_group(spec: Spec, wire_int16: bool = False,
+                          compact_bound: int = 0) -> int:
+    """Resident wire bytes per group in the given storage form."""
+    ib = empty_inbox(spec, 1, wire_int16, compact_bound, device="cpu")
+    return sum(x.numel() * x.element_size() for _, x in ib.items())
+
+
+def init_fleet(spec: Spec, C: int, voters: torch.Tensor | None = None,
+               learners: torch.Tensor | None = None, seed: int = 0,
+               election_tick: int = 10, device=None) -> NodeState:
+    """Fresh fleet, leaves [M, ..., C]. Node (m, c) draws from the seed
+    ``c * 1_000_003 + seed`` wrapped to int32, as the JAX fleet does.
+    ``voters``/``learners``: bool [M] shared by every group, or [C, M]."""
+    dev = resolve_device(device)
+    M = spec.M
+
+    def mask(x, default):
+        if x is None:
+            x = torch.full((M,), default, dtype=torch.bool)
+        x = torch.as_tensor(x, dtype=torch.bool, device=dev)
+        x = x.T if x.dim() == 2 else x.unsqueeze(1).expand(M, C)
+        return x.unsqueeze(0).expand(M, M, C)       # [node, member, C]
+
+    c = torch.arange(C, dtype=torch.int64, device=dev)
+    seeds = ((c * 1_000_003 + seed) & 0xFFFFFFFF).unsqueeze(0).expand(M, C)
+    nid = torch.arange(M, dtype=torch.int32, device=dev).unsqueeze(1).expand(M, C)
+    return init_node(spec, nid.contiguous(), mask(voters, True),
+                     mask(learners, False), seeds, election_tick)
+
+
+def _unported(cfg: RaftConfig) -> str | None:
+    """The first part of ``cfg`` this port does not implement yet, or None."""
+    for flag in ("sparse_outbox", "deferred_emit", "packed_state"):
+        if getattr(cfg, flag):
+            return flag
+    if cfg.fleet_chunks > 1:
+        return "fleet_chunks > 1"
+    if cfg.entry_classes is not None and "conf_change" in cfg.entry_classes:
+        return 'entry_classes "conf_change" (the conf-change apply block)'
+    for step in ("tick", "read_index"):
+        if step in cfg.local_steps:
+            return f'local step "{step}"'
+    if cfg.message_classes is not None:
+        extra = set(cfg.message_classes) - set(PORTED_CLASSES)
+        if extra:
+            return f"message classes {sorted(extra)}"
+    return None
+
+
+def build_round(cfg: RaftConfig, spec: Spec):
+    """Returns round_fn(state, inbox, prop_len, prop_data, prop_type, ri_ctx,
+    do_hup, do_tick, keep_mask) -> (state, next_inbox), the signature and
+    shapes of the JAX round: prop_len/ri_ctx/do_hup/do_tick [M, C],
+    prop_data/prop_type [M, E, C], keep_mask bool [M(from), M(to), C]. The
+    tick and read-index inputs are unused, as in a JAX program built
+    without those local steps. The round runs on the device its tensors are
+    on; on a CUDA device the compaction is the hand-written kernel.
+
+    Raises NotImplementedError for configurations this port does not
+    implement yet (see ``_unported``)."""
+    missing = _unported(cfg)
+    if missing:
+        raise NotImplementedError(f"etcd_tpu_torch does not implement {missing} yet")
+    M = spec.M
+
+    def round_fn(state: NodeState, inbox: Msg, prop_len, prop_data, prop_type,
+                 ri_ctx, do_hup, do_tick, keep_mask):
+        if cfg.wire_int16:
+            inbox = from_wire(inbox)
+        if cfg.compact_wire:
+            slots = _unflatten_compact(spec, inbox)        # [B, to, (E,) C]
+        else:
+            slots = _unflatten_inbox(spec, inbox).map(     # [from*K, to, (E,) C]
+                lambda _, x: x.reshape((M * spec.K,) + x.shape[2:]))
+        state, ob = node_round(cfg, spec, state, slots, prop_len, prop_data,
+                               prop_type, do_hup)
+        msgs = ob.msgs                                     # [from, K, to, (E,) C]
+        # self-loops (MsgHup-to-self) are local, never subject to faults
+        eye = torch.eye(M, dtype=torch.bool, device=keep_mask.device)
+        keep = keep_mask | eye.unsqueeze(-1)
+        msgs = msgs.replace(type=torch.where(keep.unsqueeze(1), msgs.type, 0))
+        if cfg.compact_wire:
+            nxt = compact_wire_carry(
+                spec, msgs, cfg.inbox_bound,
+                torch.int16 if cfg.wire_int16 else torch.int32)
+        else:
+            nxt = _flatten_inbox(spec, msgs)
+            if cfg.wire_int16:
+                nxt = to_wire(nxt)
+        return state.map(lambda _, x: x.contiguous()), nxt
+
+    return round_fn

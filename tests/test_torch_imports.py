@@ -1,0 +1,112 @@
+"""The port stands alone: no jax, flax or etcd_tpu import anywhere in it, a
+CUDA default that raises where there is no card, and a refusal of the
+configurations it does not implement yet."""
+import ast
+import dataclasses
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from etcd_tpu_torch import drive
+from etcd_tpu_torch.models import engine as teng
+from etcd_tpu_torch.types import MSG_HEARTBEAT
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "etcd_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "flax", "etcd_tpu"}
+
+torch.set_num_threads(1)
+
+
+def test_no_forbidden_imports_in_the_package():
+    found = []
+    for path in sorted(PKG.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module]
+            else:
+                continue
+            found += [(path.name, m) for m in mods if m.split(".")[0] in FORBIDDEN]
+    assert found == []
+    for path in (ROOT / "chip_smoke.py",):
+        tree = ast.parse(path.read_text())
+        names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+        names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+        assert not [m for m in names if m.split(".")[0] in FORBIDDEN]
+
+
+def test_imports_and_runs_a_round_with_jax_blocked():
+    """In a fresh interpreter where importing jax, flax or etcd_tpu fails,
+    the port imports and runs one CPU round at C=2."""
+    code = "\n".join([
+        "import sys",
+        "for m in ('jax', 'jaxlib', 'flax', 'etcd_tpu'):",
+        "    sys.modules[m] = None",
+        "import torch",
+        "torch.set_num_threads(1)",
+        "from etcd_tpu_torch import drive",
+        "from etcd_tpu_torch.models.engine import build_round, empty_inbox, init_fleet",
+        "spec = drive.bench_spec(); cfg = drive.settle_config(spec)",
+        "st = init_fleet(spec, 2, device='cpu')",
+        "ib = empty_inbox(spec, 2, True, cfg.inbox_bound, device='cpu')",
+        "z2 = torch.zeros((5, 2), dtype=torch.int32); zp = torch.zeros((5, 1, 2), dtype=torch.int32)",
+        "no = torch.zeros((5, 2), dtype=torch.bool); hup = no.clone(); hup[0] = True",
+        "st, ib = build_round(cfg, spec)(st, ib, z2, zp, zp, z2, hup, no,",
+        "                                torch.ones((5, 5, 2), dtype=torch.bool))",
+        "assert int((ib.type != 0).sum()) == 8, ib.type",
+        "assert not any(m in sys.modules and sys.modules[m] is not None",
+        "               for m in ('jax', 'flax', 'etcd_tpu'))",
+        "print('ok')",
+    ])
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default does not raise here")
+    spec = drive.bench_spec()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        teng.init_fleet(spec, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        teng.empty_inbox(spec, 2)
+    st = teng.init_fleet(spec, 2, device="cpu")
+    ib = teng.empty_inbox(spec, 2, True, 4, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        drive.settle_leaders(drive.settle_config(spec), spec, st, ib)
+
+
+UNPORTED = {
+    "deferred_emit": dict(deferred_emit=True),
+    "sparse_outbox": dict(deferred_emit=True, sparse_outbox=True,
+                          message_classes=(1, 2, 14), local_steps=("prop",)),
+    "packed_state": dict(packed_state=True),
+    "fleet_chunks": dict(fleet_chunks=4),
+    "conf_change": dict(entry_classes=("normal", "conf_change")),
+    "tick": dict(local_steps=("tick", "hup", "prop")),
+    "read_index": dict(local_steps=("hup", "prop", "read_index")),
+    "message classes": dict(message_classes=(1, 2, 14, 17, MSG_HEARTBEAT)),
+}
+
+
+@pytest.mark.parametrize("what", sorted(UNPORTED))
+def test_build_round_refuses_what_the_slice_does_not_implement(what):
+    spec = drive.bench_spec()
+    cfg = dataclasses.replace(drive.settle_config(spec), **UNPORTED[what])
+    with pytest.raises(NotImplementedError, match=what):
+        teng.build_round(cfg, spec)
+
+
+def test_build_round_takes_the_slice_configs():
+    spec = drive.bench_spec()
+    cfg = drive.settle_config(spec)
+    teng.build_round(cfg, spec)
+    teng.build_round(drive.steady_config(cfg), spec)
+    teng.build_round(dataclasses.replace(cfg, compact_wire=False, wire_int16=False), spec)
