@@ -3,20 +3,35 @@
 
     python3 chip_smoke.py [--profile]
 
-Phases, each printing one line:
+Phases, each printing its lines:
   0. the card (torch and nvidia-smi's name and power limit);
   1. the compaction kernel: built from etcd_tpu_torch/kernels/compact_wire.cu,
      launched on seeded random inputs (about 40% of slots nonempty) at the
      bench geometry (C = 1,048,576 groups, S = 10 sender slots, 5 receivers,
      bound 4, E = 1, plus an E = 2 case at C = 262,144), and held bit for
-     bit against its plain PyTorch version, with both times (median of 25
-     launches, CUDA events);
-  2. the kernel inside the round: settle + 16 steady rounds at C = 64 on the
-     card and on the CPU plain path, every state and wire leaf equal;
-  3. the slice at full width: init_fleet, settle_leaders and 16
-     steady_rounds at C = 1,048,576 groups (bench.py's north-star fleet)
-     with the kernel launch count read around that run, the commit
-     advance and hash-chain checks, group-rounds/s and peak memory.
+     bit against its plain PyTorch version, with both times (mean of 25
+     back-to-back launches, CUDA events);
+  2. the kernel inside the rounds at C = 64, card against CPU on every leaf:
+     settle + 16 dense steady rounds; then bench.py's steady program
+     (packed state, deferred emission, sparse outbox) for 16 rounds from
+     the packed settled fleet; and on the card that program's CUDA graph
+     (parallel/mesh.py build_scan_rounds), two replays of 16 rounds, against
+     the same 32 rounds run eagerly;
+  3. the dense eager path at full width: init_fleet, settle_leaders and 16
+     steady_rounds at C = 1,048,576 groups with the kernel launch count read
+     around that run, the commit advance and hash-chain checks,
+     group-rounds/s and peak memory (``--profile`` adds a device profile);
+  4. the bench path at full width: etcd_tpu_torch.bench's run at its
+     defaults (C = 1,048,576: settle, pack, 16 rounds x (1 + 3 timed) as one
+     CUDA graph, the commit check, the metered pass), printing its JSON line,
+     with the launches counted around it (the graph's recorded launches
+     times its replays, plus the eager ones) and its peak memory;
+  5. the same steady program run eagerly for comparison at full width, the
+     compaction kernel timed on the outbox of its last round (the main
+     path's own input) against its plain version and its bound, a device
+     profile of two eager rounds (launches per round, device busy time,
+     idle share, device time under named functions), and of one replay of
+     a fresh graph of 16 rounds, with that graph's peak memory.
 Then a line with the kernels' JSON record, nvidia-smi's name and power limit,
 and last {"ok": true, "device": {...}}. Any failure exits non-zero before the
 last line. Needs a CUDA device; the port imports no JAX.
@@ -24,8 +39,8 @@ last line. Needs a CUDA device; the port imports no JAX.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -35,6 +50,9 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
 INT32_OPS_PER_S = 67e12       # float32 rate outside the tensor cores, used for 32-bit ops
 KERNEL_SOURCE = "etcd_tpu_torch/kernels/compact_wire.cu"
 KERNEL_REPLACES = "experiments/pallas_compact.py:59"
+# the JAX package's state_bytes_per_group(spec, packed=True) at bench.py's
+# geometry (tests/test_torch_packed.py holds the port's equal to it)
+JAX_PACKED_STATE_BYTES = 1230
 
 
 def nvidia_smi() -> str:
@@ -45,20 +63,20 @@ def nvidia_smi() -> str:
 
 
 def time_ms(fn, n=25, warmup=3):
-    """Median time of ``n`` calls of ``fn`` on the current stream, ms."""
+    """Mean time of ``n`` back-to-back calls of ``fn`` on the current stream,
+    ms, between two CUDA events: the host enqueues ahead of the card, so
+    the wrapper's own host time stays out of the reading."""
     import torch
 
     for _ in range(warmup):
         fn()
-    times = []
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
     for _ in range(n):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
 
 
 def random_outbox(spec, C, gen, dev):
@@ -85,8 +103,10 @@ def random_outbox(spec, C, gen, dev):
 
 
 def needed_bytes(spec, msgs, bound, out_itemsize):
-    """Bytes the compaction must move for these inputs: the type plane, the
-    surviving slots of every other leaf, and the outputs."""
+    """Bytes the compaction must move for these inputs, at the card's 32 B
+    sector: the whole type plane; of every other leaf, each sector (8 int32
+    or 32 bool columns of one slot row) from which some column selects a
+    slot; and the outputs."""
     import torch
 
     from etcd_tpu_torch.types import ENT_FIELDS
@@ -94,16 +114,59 @@ def needed_bytes(spec, msgs, bound, out_itemsize):
     M, K, E = spec.M, spec.K, spec.E
     S, C = M * K, msgs.type.shape[-1]
     B = min(bound, S)
-    kept = int(torch.clamp((msgs.type.reshape(S, M, C) != 0).sum(0), max=B).sum())
+    if C % 32:
+        raise ValueError(f"needed_bytes counts 32-column sectors; C={C}")
+    live = msgs.type.reshape(S, M, C) != 0
+    sel = live & (torch.cumsum(live.to(torch.int32), 0) <= B)    # [S, to, C]
+    sectors = {per: int(sel.view(S, M, C // per, per).any(-1).sum()) for per in (8, 32)}
     total = msgs.type.numel() * 4
     for name, x in msgs.items():
         e = E if name in ENT_FIELDS else 1
-        item = 1 if name == "reject" else 4
         out_item = 1 if name == "reject" else out_itemsize
         if name != "type":
-            total += kept * e * item
+            total += sectors[32 if name == "reject" else 8] * 32 * e
         total += B * M * C * e * out_item
     return total
+
+
+def kernel_record(spec, msgs, bound, where):
+    """Time the kernel and its plain version on ``msgs`` (``time_ms``),
+    after holding them equal; the JSON record's fields with the bound
+    computed from these inputs."""
+    import torch
+
+    from etcd_tpu_torch.kernels import compact_wire as cw
+
+    out = torch.int16            # the main path's int16 wire
+    got = cw.compact_wire_carry(spec, msgs, bound, out)
+    ref = cw.compact_wire_carry_plain(spec, msgs, bound, out)
+    torch.cuda.synchronize()
+    bad = leaves_equal(got, ref)
+    err = max_abs_err(got, ref)
+    if bad or err:
+        raise AssertionError(f"kernel != plain on {where}: {bad}, max abs err {err}")
+    del got, ref
+    ms = time_ms(lambda: cw.compact_wire_carry(spec, msgs, bound, out))
+    plain_ms = time_ms(lambda: cw.compact_wire_carry_plain(spec, msgs, bound, out))
+    C = msgs.type.shape[-1]
+    nbytes = needed_bytes(spec, msgs, bound, 2)
+    S = spec.M * spec.K
+    ops = spec.M * C * (2 * S + 17 * bound)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    record = {
+        "name": "compact_wire", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": KERNEL_REPLACES, "launches": None, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    }
+    print(f"kernel on {where} C={C}: == plain (int16 wire, max abs err {err}); "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {nbytes / 1e9:.4f} GB "
+          f"needed at 32 B sectors -> {nbytes / ms / 1e6:.1f} GB/s, bound "
+          f"{record['bound_ms']:.4f} ms ({record['bound_by']}), "
+          f"{record['bound_ms'] / ms:.1%} of it", flush=True)
+    return record
 
 
 def leaves_equal(a, b):
@@ -140,44 +203,15 @@ def phase_kernel():
     gen.manual_seed(0)
     spec = drive.bench_spec()
     bound = spec.M - 1
-    out = torch.int16            # the main path's int16 wire
-    record, err = None, 0
+    err = 0
     for E, C in ((1, FULL_GROUPS), (2, FULL_GROUPS // 4)):
         sp = Spec(M=spec.M, L=spec.L, E=E, K=spec.K, W=spec.W, R=spec.R, A=spec.A)
         msgs = random_outbox(sp, C, gen, dev)
-        got = cw.compact_wire_carry(sp, msgs, bound, out)
-        ref = cw.compact_wire_carry_plain(sp, msgs, bound, out)
-        torch.cuda.synchronize()
-        bad = leaves_equal(got, ref)
-        err = max(err, max_abs_err(got, ref))
-        if bad or err:
-            raise AssertionError(f"kernel != plain at E={E} C={C}: {bad}, "
-                                 f"max abs err {err}")
-        del got, ref
-        print(f"phase 1 E={E} C={C}: kernel == plain bit for bit (int16 wire), "
-              f"max abs err {err}")
-        if E == 1:
-            ms = time_ms(lambda: cw.compact_wire_carry(sp, msgs, bound, out))
-            plain_ms = time_ms(lambda: cw.compact_wire_carry_plain(sp, msgs, bound, out))
-            nbytes = needed_bytes(sp, msgs, bound, 2)
-            S = sp.M * sp.K
-            ops = sp.M * C * (2 * S + 17 * bound)
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = ops / INT32_OPS_PER_S * 1e3
-            record = {
-                "name": "compact_wire", "route": "cuda", "source": KERNEL_SOURCE,
-                "replaces": KERNEL_REPLACES, "launches": None, "max_abs_err": None,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "library_ms": None,
-            }
-            print(f"phase 1 time C={C}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"{nbytes / 1e9:.3f} GB needed -> {nbytes / ms / 1e6:.1f} GB/s, "
-                  f"bound {record['bound_ms']:.4f} ms ({record['bound_by']})")
+        print("phase 1 ", end="")
+        err = max(err, kernel_record(sp, msgs, bound, f"random outbox E={E}")["max_abs_err"])
         del msgs
     torch.cuda.empty_cache()
-    record["max_abs_err"] = err
-    return record
+    return err
 
 
 def run_slice(spec, C, device, steady_n=16):
@@ -195,10 +229,20 @@ def run_slice(spec, C, device, steady_n=16):
     return state, inbox, rounds, adv
 
 
+def steady_program(spec):
+    """etcd_tpu_torch.bench's (settle config, steady config) at its defaults."""
+    from etcd_tpu_torch import bench
+
+    return bench.configs(bench.read_knobs({}), spec)
+
+
 def phase_round():
     import torch
 
     from etcd_tpu_torch import drive
+    from etcd_tpu_torch.models.engine import empty_inbox, init_fleet
+    from etcd_tpu_torch.models.state import pack_fleet
+    from etcd_tpu_torch.parallel.mesh import build_scan_rounds
 
     spec = drive.bench_spec()
     gs, gi, r1, _ = run_slice(spec, 64, "cuda")
@@ -209,6 +253,33 @@ def phase_round():
     torch.cuda.synchronize()
     print(f"phase 2 C=64: settle ({r1} rounds) + 16 steady rounds, card (kernel) == "
           "CPU (plain) on every state and wire leaf")
+
+    cfg, steady = steady_program(spec)
+    ends, settled = {}, {}
+    for dev in ("cuda", "cpu"):
+        st = init_fleet(spec, 64, device=dev)
+        ib = empty_inbox(spec, 64, cfg.wire_int16, cfg.inbox_bound, device=dev)
+        st, ib, _ = drive.settle_leaders(cfg, spec, st, ib, device=dev)
+        settled[dev] = (pack_fleet(spec, st), ib)
+        ends[dev] = drive.steady_rounds(steady, spec, *settled[dev], 16)
+    bad = [k for a, b in zip(ends["cuda"], ends["cpu"]) for k in leaves_equal(a, b)]
+    if bad:
+        raise AssertionError(f"steady program: card != CPU at C=64: {bad}")
+    print("phase 2 C=64: settle, pack + 16 packed/deferred/sparse steady rounds, "
+          "card (kernel) == CPU (plain) on every packed state and wire leaf")
+
+    args = drive.steady_inputs(spec, 64, "cuda")
+    scan = build_scan_rounds(steady, spec, None, rounds=16)
+    st, ib = scan(*settled["cuda"], *args)
+    st, ib = scan(st, ib, *args)
+    eager = drive.steady_rounds(steady, spec, *settled["cuda"], 32)
+    torch.cuda.synchronize()
+    bad = leaves_equal(st, eager[0]) + leaves_equal(ib, eager[1])
+    if bad:
+        raise AssertionError(f"CUDA graph replay != eager rounds at C=64: {bad}")
+    print(f"phase 2 C=64: CUDA graph of 16 rounds ({sum(scan.captured.values())} "
+          f"kernel launches recorded: {dict(scan.captured)}) replayed twice == "
+          "32 eager rounds on every packed state and wire leaf")
 
 
 def phase_full(card, profile=False):
@@ -252,34 +323,144 @@ def phase_full(card, profile=False):
           f"{rate:.1f} group-rounds/s, commit advance {adv}, "
           f"peak memory {peak / 2**30:.2f} GiB, launches {launches}")
     if profile:
-        profile_steady(drive.steady_config(cfg), spec, state, inbox, card)
+        steady = drive.steady_config(cfg)
+        profile_rounds("phase 3 profile", lambda: drive.steady_rounds(
+            steady, spec, state, inbox, 2), 2, card)
     return launches
+
+
+def free_card():
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_bench(card):
+    """etcd_tpu_torch.bench's main path at its defaults, with the launches
+    made on it: the eager ones, plus the graph's recorded launches once per
+    replay (``kernels.LAUNCHES`` counts a recorded launch once, at capture,
+    where it does not run)."""
+    import torch
+
+    from etcd_tpu_torch import bench
+    from etcd_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    knobs = bench.read_knobs({})
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = bench.run(knobs, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    scan = res.scan
+    launches = {k: v - scan.captured[k] + scan.captured[k] * scan.replays
+                for k, v in LAUNCHES.items()}
+    peak = torch.cuda.max_memory_allocated()
+    print(json.dumps(res.report))
+    rep = res.report
+    per_round = {k: v / knobs.inner for k, v in scan.captured.items()}
+    print(f"phase 4 bench C={knobs.C} on {card}: {wall:.1f}s in all, settle "
+          f"{res.settle_rounds}+1 rounds, CUDA graph of {knobs.inner} rounds x "
+          f"{scan.replays} replays (timed {', '.join(f'{t:.4f}' for t in res.timed_s)} s), "
+          f"{rep['value']} group-rounds/s, peak memory {peak / 2**30:.2f} GiB, "
+          f"launches {launches}, recorded per graph round {per_round}", flush=True)
+    if per_round.get("compact_wire") != 1:
+        raise AssertionError(f"the graph holds {dict(scan.captured)} launches for "
+                             f"{knobs.inner} rounds; compact_wire must be once a round")
+    slack = 1 - 4 / (knobs.inner * knobs.reps)
+    if not rep["commits_per_group_per_round"] >= slack:
+        raise AssertionError(f"metered commits_per_group_per_round "
+                             f"{rep['commits_per_group_per_round']} < {slack}")
+    if rep["bytes_per_group_state"] != JAX_PACKED_STATE_BYTES:
+        raise AssertionError(f"bytes_per_group_state {rep['bytes_per_group_state']} "
+                             f"!= the JAX package's {JAX_PACKED_STATE_BYTES}")
+    return res, launches
+
+
+def phase_compare(res, card, rounds=16):
+    """The bench's steady program run eagerly on its fleet, the kernel timed
+    on the outbox of its last round, and device profiles of two eager
+    rounds and one replay of a fresh graph of ``rounds`` rounds."""
+    import torch
+
+    from etcd_tpu_torch import drive
+    from etcd_tpu_torch.models import engine
+    from etcd_tpu_torch.models.state import pack_fleet
+    from etcd_tpu_torch.parallel.mesh import build_scan_rounds
+
+    spec = drive.bench_spec()
+    _, steady = steady_program(spec)
+    C = res.inbox.type.shape[-1]
+    state, inbox = pack_fleet(spec, res.state), res.inbox
+    res.state = res.inbox = None
+    free_card()
+    state, inbox = drive.steady_rounds(steady, spec, state, inbox, 1)    # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, inbox = drive.steady_rounds(steady, spec, state, inbox, rounds - 1)
+    seen = {}
+    real = engine.compact_wire_carry
+
+    def recording(sp, msgs, bound, out_dtype=torch.int32):
+        seen.update(spec=sp, msgs=msgs, bound=bound)
+        return real(sp, msgs, bound, out_dtype)
+
+    engine.compact_wire_carry = recording
+    try:
+        state, inbox = drive.steady_rounds(steady, spec, state, inbox, 1)
+    finally:
+        engine.compact_wire_carry = real
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    print(f"phase 5 eager steady program C={C} on {card}: {rounds} rounds {t:.3f}s = "
+          f"{C * rounds / t:.1f} group-rounds/s (graph: {res.report['value']})", flush=True)
+    print("phase 5 ", end="")
+    record = kernel_record(seen["spec"], seen["msgs"], seen["bound"],
+                           "the steady program's outbox")
+    del seen
+    profile_rounds("phase 5 profile eager", lambda: drive.steady_rounds(
+        steady, spec, state, inbox, 2), 2, card)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    args = drive.steady_inputs(spec, C, "cuda")
+    scan = build_scan_rounds(steady, spec, None, rounds=rounds)
+    out = scan(state, inbox, *args)                                      # capture
+    torch.cuda.synchronize()
+    print(f"phase 5 graph of {rounds} rounds: peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({base / 2**30:.2f} GiB "
+          f"held before it: the packed fleet and its wire)", flush=True)
+    profile_rounds("phase 5 profile graph", lambda: scan(*out, *args), rounds, card)
+    scan.release()
+    return record
 
 
 # functions whose device time the profile reports as named ranges
 PROFILED = (("etcd_tpu_torch.models.raft", "process_message"),
             ("etcd_tpu_torch.utils.prng", "threefry2x32"),
             ("etcd_tpu_torch.models.raft", "apply_round"),
+            ("etcd_tpu_torch.models.raft", "_flush_deferred"),
+            ("etcd_tpu_torch.models.engine", "unpack_fleet"),
+            ("etcd_tpu_torch.models.engine", "pack_fleet"),
             ("etcd_tpu_torch.models.engine", "compact_wire_carry"))
 
 
-def profile_steady(cfg, spec, state, inbox, card, rounds=2):
-    """Where a steady round's time goes: device busy time against wall time
-    over ``rounds`` rounds, the device time under a few named functions
-    (process_message includes the threefry draws), and the kernels that
-    take most of it."""
+def profile_rounds(label, fn, rounds, card):
+    """Where the time of ``fn`` (``rounds`` rounds) goes: device busy time
+    against wall time, kernel launches per round, the device time under a
+    few named functions (process_message includes the threefry draws; a
+    graph replay calls none of them), and the kernels that take most."""
     import importlib
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from etcd_tpu_torch import drive
-
-    def ranged(name, fn):
+    def ranged(name, f):
         def call(*a, **k):
             with record_function(name):
-                return fn(*a, **k)
+                return f(*a, **k)
         return call
 
     saved = []
@@ -290,12 +471,12 @@ def profile_steady(cfg, spec, state, inbox, card, rounds=2):
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            drive.steady_rounds(cfg, spec, state, inbox, rounds)
+            fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
-        for mod, fn_name, fn in saved:
-            setattr(mod, fn_name, fn)
+        for mod, fn_name, f in saved:
+            setattr(mod, fn_name, f)
     events = prof.key_averages()
     ranges = {n for _, n in PROFILED}
     # the named ranges show on the device timeline as spans from their
@@ -304,18 +485,23 @@ def profile_steady(cfg, spec, state, inbox, card, rounds=2):
                if e.device_type == DeviceType.CUDA and e.key not in ranges]
     busy_us = sum(e.self_device_time_total for e in kernels)
     count = sum(e.count for e in kernels)
-    print(f"profile {rounds} steady rounds on {card}: wall {wall * 1e3 / rounds:.2f} ms/round, "
+    if not count:
+        print(f"{label}: wall {wall * 1e3 / rounds:.2f} ms/round; the profiler saw no "
+              "kernels: device busy time and idle share not measured")
+        return
+    print(f"{label} {rounds} rounds on {card}: wall {wall * 1e3 / rounds:.2f} ms/round, "
           f"device busy {busy_us / 1e3 / rounds:.2f} ms/round "
           f"(idle share {1 - busy_us / 1e6 / wall:.3f}), "
-          f"{count / rounds:.0f} kernel launches/round")
+          f"{count / rounds:.0f} kernel launches/round", flush=True)
     spans = {e.key: e for e in events
              if e.key in ranges and e.device_type == DeviceType.CUDA}
-    print("profile device span ms/round of: " + ", ".join(
-        f"{n} {spans[n].device_time_total / 1e3 / rounds:.2f} ({spans[n].count // rounds}x)"
-        for _, n in PROFILED if n in spans))
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"profile   {e.self_device_time_total / 1e3 / rounds:9.3f} ms/round "
-              f"{e.count // rounds:6d}x  {e.key[:150]}")
+    if spans:
+        print(f"{label} device span ms/round of: " + ", ".join(
+            f"{n} {spans[n].device_time_total / 1e3 / rounds:.2f} "
+            f"({spans[n].count / rounds:g}x)" for _, n in PROFILED if n in spans))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"{label}   {e.self_device_time_total / 1e3 / rounds:9.3f} ms/round "
+              f"{e.count / rounds:8.1f}x  {e.key[:140]}")
 
 
 def main(argv=None) -> int:
@@ -339,12 +525,21 @@ def main(argv=None) -> int:
     name = torch.cuda.get_device_name(0)
     print(f"phase 0 device: {name} x{torch.cuda.device_count()}, torch "
           f"{torch.__version__} cuda {torch.version.cuda}; nvidia-smi: {smi}", flush=True)
-    record = phase_kernel()
-    sys.stdout.flush()
+    t0 = time.perf_counter()
+    err = phase_kernel()
     phase_round()
     sys.stdout.flush()
-    launches = phase_full(smi, args.profile)
+    phase_full(smi, args.profile)
+    free_card()
+    res, launches = phase_bench(smi)
+    record = phase_compare(res, smi)
+    del res
+    free_card()
     record["launches"] = launches.get("compact_wire", 0)
+    record["max_abs_err"] = max(err, record["max_abs_err"])
+    if not record["launches"]:
+        raise AssertionError("the bench path launched no compact_wire kernel")
+    print(f"all phases in {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": [record]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

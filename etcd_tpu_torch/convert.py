@@ -1,10 +1,11 @@
-"""Fleet state and wire to and from numpy.
+"""Fleet state, wire and counters to and from numpy.
 
-Maps the arrays of a JAX fleet or wire (taken to numpy leaf by leaf) onto
-the port's tensors and back, keeping every dtype: bool, int16 and int32 as
-they are, and the uint32 PRNG key as the int32 bit patterns the port stores
-(utils/prng.py). With these, both packages start from the same state and
-their results compare leaf for leaf.
+Maps the arrays of a JAX fleet, packed fleet, wire or FleetMetrics (taken to
+numpy leaf by leaf) onto the port's tensors and back, keeping every dtype:
+bool, int16 and int32 as they are, and the uint32 leaves (the PRNG key and
+the packed bit lanes) as the int32 bit patterns the port stores. With these,
+both packages start from the same state and their results compare leaf for
+leaf.
 """
 from __future__ import annotations
 
@@ -14,6 +15,9 @@ import torch
 from etcd_tpu_torch.models.state import NodeState
 from etcd_tpu_torch.types import Msg, TensorStruct
 
+# leaves the JAX package holds as uint32
+UINT32_LEAVES = ("rng_key", "bits")
+
 
 def _tensor(x: np.ndarray, device) -> torch.Tensor:
     x = np.array(x)                      # a writable, contiguous copy
@@ -22,20 +26,26 @@ def _tensor(x: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(x).to(device)
 
 
+def from_numpy(cls, leaves: dict, device):
+    """``leaves``: field name of ``cls`` (NodeState, Msg, PackedFleet,
+    FleetMetrics) -> array."""
+    return cls(**{k: _tensor(leaves[k], device) for k in cls.names()})
+
+
 def node_state_from_numpy(leaves: dict, device) -> NodeState:
     """``leaves``: NodeState field name -> array, [M, ..., C] fleet layout."""
-    return NodeState(**{k: _tensor(leaves[k], device) for k in NodeState.names()})
+    return from_numpy(NodeState, leaves, device)
 
 
 def msg_from_numpy(leaves: dict, device) -> Msg:
     """``leaves``: Msg field name -> array (any of the wire layouts)."""
-    return Msg(**{k: _tensor(leaves[k], device) for k in Msg.names()})
+    return from_numpy(Msg, leaves, device)
 
 
 def to_numpy(struct: TensorStruct) -> dict:
-    """The inverse: field name -> numpy array, the PRNG key as uint32."""
+    """The inverse: field name -> numpy array, the uint32 leaves as uint32."""
     out = {}
     for k, v in struct.items():
         a = v.detach().cpu().numpy()
-        out[k] = a.view(np.uint32) if k == "rng_key" else a
+        out[k] = a.view(np.uint32) if k in UINT32_LEAVES else a
     return out

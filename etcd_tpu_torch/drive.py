@@ -7,9 +7,11 @@ Two phases over a fleet of C five-member groups:
     the leader: MsgProp -> append -> MsgApp -> follower append and
     MsgAppResp -> quorum commit -> apply -> delivery into the next inbox.
 
-The configuration is bench.py's accelerator one in its dense storage form
-with immediate emission (``bench_spec``, ``settle_config``,
-``steady_config``). A plain loop of rounds.
+The configuration is bench.py's accelerator one (``bench_spec``,
+``settle_config``), with ``steady_config`` its steady program in the dense
+storage form with immediate emission; etcd_tpu_torch.bench adds the packed
+state, deferred emission and sparse outbox of bench.py's defaults. A plain
+loop of rounds.
 """
 from __future__ import annotations
 
@@ -95,21 +97,27 @@ def settle_leaders(cfg: RaftConfig, spec: Spec, state: NodeState, inbox: Msg,
 def steady_rounds(cfg: RaftConfig, spec: Spec, state: NodeState, inbox: Msg,
                   rounds: int, keep: torch.Tensor | None = None):
     """``rounds`` steady rounds with one proposal per group per round at
-    member 0 (prop_len[0] = 1, prop_data[0, 0] = 7), on the device the
-    fleet lies on. ``keep``: optional keep-mask [M, M, C]. Returns
-    (state, inbox)."""
-    dev = state.term.device
-    C = state.term.shape[-1]
+    member 0 (``steady_inputs``), on the device the fleet lies on, in the
+    state's storage form (dense, or packed under cfg.packed_state).
+    ``keep``: optional keep-mask [M, M, C]. Returns (state, inbox)."""
     step = build_round(cfg, spec)
-    z2, zp, no, full = _inputs(spec, C, dev)
+    args = steady_inputs(spec, state.rng_key.shape[-1], state.rng_key.device, keep)
+    for _ in range(rounds):
+        state, inbox = step(state, inbox, *args)
+    return state, inbox
+
+
+def steady_inputs(spec: Spec, C: int, device, keep: torch.Tensor | None = None):
+    """The per-round inputs of a steady round after the (state, inbox)
+    carry: one proposal per group at member 0 (prop_len[0] = 1,
+    prop_data[0, 0] = 7), no read index, hup or tick, and ``keep`` or a
+    keep-everything mask."""
+    z2, zp, no, full = _inputs(spec, C, device)
     prop_len = z2.clone()
     prop_len[0] = 1
     prop_data = zp.clone()
     prop_data[0, 0] = 7
-    keep = full if keep is None else keep
-    for _ in range(rounds):
-        state, inbox = step(state, inbox, prop_len, prop_data, zp, z2, no, no, keep)
-    return state, inbox
+    return (prop_len, prop_data, zp, z2, no, no, full if keep is None else keep)
 
 
 def check_steady(state: NodeState, commit0: int, rounds: int) -> int:

@@ -9,8 +9,9 @@
 // the last nonempty one are all zero (frm included).
 //
 // Bound: bytes. There is no arithmetic to speak of; the card has to read the
-// type plane once and, for every other leaf, the slots that survive, and to
-// write the B output slots. Design: one thread per (to, c) column, so the
+// type plane once and, for every other leaf, each 32 B sector (8 int32 or 32
+// bool columns of one slot row) from which some column selects a slot, and
+// to write the B output slots. Design: one thread per (to, c) column, so the
 // threads of a warp walk along C, the minor axis, and every access to a slot
 // row is coalesced. The thread reads the S type words once, keeps the source
 // slot of each output slot in registers, and then copies only the selected

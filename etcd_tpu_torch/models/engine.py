@@ -6,7 +6,9 @@ or compacted [B, to(*E), C] under ``RaftConfig.compact_wire`` — with int16
 leaves under ``RaftConfig.wire_int16``. The node axis of the batched round
 is the member axis, so the outbox a round writes is the [from, K, to, (E,)
 C] delivery view; the keep-mask zeroes the type of dropped slots and the
-compaction kernel packs the survivors into the next inbox.
+compaction kernel packs the survivors into the next inbox. Under
+``RaftConfig.packed_state`` the state between rounds is the PackedFleet
+storage form, and ``fleet_chunks`` runs the round over C-slices in turn.
 """
 from __future__ import annotations
 
@@ -14,7 +16,13 @@ import torch
 
 from etcd_tpu_torch.kernels.compact_wire import compact_wire_carry
 from etcd_tpu_torch.models.raft import node_round
-from etcd_tpu_torch.models.state import NodeState, init_node
+from etcd_tpu_torch.models.state import (
+    PACK_TIMER_BITS,
+    NodeState,
+    init_node,
+    pack_fleet,
+    unpack_fleet,
+)
 from etcd_tpu_torch.types import (
     ENT_FIELDS,
     PORTED_CLASSES,
@@ -115,11 +123,6 @@ def init_fleet(spec: Spec, C: int, voters: torch.Tensor | None = None,
 
 def _unported(cfg: RaftConfig) -> str | None:
     """The first part of ``cfg`` this port does not implement yet, or None."""
-    for flag in ("sparse_outbox", "deferred_emit", "packed_state"):
-        if getattr(cfg, flag):
-            return flag
-    if cfg.fleet_chunks > 1:
-        return "fleet_chunks > 1"
     if cfg.entry_classes is not None and "conf_change" in cfg.entry_classes:
         return 'entry_classes "conf_change" (the conf-change apply block)'
     for step in ("tick", "read_index"):
@@ -132,7 +135,7 @@ def _unported(cfg: RaftConfig) -> str | None:
     return None
 
 
-def build_round(cfg: RaftConfig, spec: Spec):
+def build_round(cfg: RaftConfig, spec: Spec, with_drop_count: bool = False):
     """Returns round_fn(state, inbox, prop_len, prop_data, prop_type, ri_ctx,
     do_hup, do_tick, keep_mask) -> (state, next_inbox), the signature and
     shapes of the JAX round: prop_len/ri_ctx/do_hup/do_tick [M, C],
@@ -141,15 +144,30 @@ def build_round(cfg: RaftConfig, spec: Spec):
     without those local steps. The round runs on the device its tensors are
     on; on a CUDA device the compaction is the hand-written kernel.
 
+    ``with_drop_count``: also return the number of emitted messages the
+    keep-mask (and, under compact_wire, the inbox bound) dropped, a 0-dim
+    int64 tensor on the device. ``cfg.packed_state``: the state argument
+    and result are PackedFleets, unpacked and repacked inside the round
+    (inside each chunk under fleet_chunks > 1). Under fleet_chunks > 1 the
+    round writes its results into the state and inbox it was given (their
+    contiguous leaves; the JAX program donates them), so a caller that
+    needs its input afterwards passes a copy.
+
     Raises NotImplementedError for configurations this port does not
     implement yet (see ``_unported``)."""
     missing = _unported(cfg)
     if missing:
         raise NotImplementedError(f"etcd_tpu_torch does not implement {missing} yet")
+    if cfg.packed_state and 2 * cfg.election_tick >= (1 << PACK_TIMER_BITS):
+        raise ValueError(
+            f"packed_state timer lanes hold {PACK_TIMER_BITS} bits; "
+            f"election_tick={cfg.election_tick} needs 2*T < {1 << PACK_TIMER_BITS}")
     M = spec.M
 
-    def round_fn(state: NodeState, inbox: Msg, prop_len, prop_data, prop_type,
-                 ri_ctx, do_hup, do_tick, keep_mask):
+    def core(state, inbox: Msg, prop_len, prop_data, prop_type,
+             ri_ctx, do_hup, do_tick, keep_mask):
+        if cfg.packed_state:
+            state = unpack_fleet(spec, state)
         if cfg.wire_int16:
             inbox = from_wire(inbox)
         if cfg.compact_wire:
@@ -160,6 +178,7 @@ def build_round(cfg: RaftConfig, spec: Spec):
         state, ob = node_round(cfg, spec, state, slots, prop_len, prop_data,
                                prop_type, do_hup)
         msgs = ob.msgs                                     # [from, K, to, (E,) C]
+        emitted = (msgs.type != 0).sum() if with_drop_count else None
         # self-loops (MsgHup-to-self) are local, never subject to faults
         eye = torch.eye(M, dtype=torch.bool, device=keep_mask.device)
         keep = keep_mask | eye.unsqueeze(-1)
@@ -172,6 +191,46 @@ def build_round(cfg: RaftConfig, spec: Spec):
             nxt = _flatten_inbox(spec, msgs)
             if cfg.wire_int16:
                 nxt = to_wire(nxt)
-        return state.map(lambda _, x: x.contiguous()), nxt
+        if cfg.packed_state:
+            state = pack_fleet(spec, state)
+        else:
+            state = state.map(lambda _, x: x.contiguous())
+        if with_drop_count:
+            return state, nxt, emitted - (nxt.type != 0).sum()
+        return state, nxt
+
+    if cfg.fleet_chunks <= 1:
+        return core
+
+    def round_fn(state, inbox, *rest):
+        # the clusters axis is independent and trailing: run the round on
+        # contiguous copies of each C-slice in turn and write each chunk's
+        # results back into the leaves it was cut from (the chunks are
+        # disjoint, and a slice is copied out before it is overwritten), so
+        # one fleet stays resident beside one chunk's temps
+        C = state.rng_key.shape[-1]
+        chunks = cfg.fleet_chunks
+        if C % chunks:
+            return core(state, inbox, *rest)
+        csz = C // chunks
+        # a strided leaf cannot take the writes: give it contiguous storage
+        state, inbox = (t.map(lambda _, x: x.contiguous()) for t in (state, inbox))
+        dropped = 0
+        for i in range(chunks):
+            sl = slice(i * csz, (i + 1) * csz)
+
+            def cut(x):
+                return x[..., sl].contiguous()
+
+            part = core(state.map(lambda _, x: cut(x)), inbox.map(lambda _, x: cut(x)),
+                        *[cut(r) for r in rest])
+            for full, p in zip((state, inbox), part[:2]):
+                for name, x in p.items():
+                    getattr(full, name)[..., sl].copy_(x)
+            if with_drop_count:
+                dropped = dropped + part[2]
+        if with_drop_count:
+            return state, inbox, dropped
+        return state, inbox
 
     return round_fn

@@ -276,8 +276,9 @@ def maybe_send_append(cfg, spec, n: NodeState, ob: Outbox, dest_mask,
     """raft.maybeSendAppend over all destinations (raft.go:432-492), with
     the MsgSnap fallback when the needed entries are compacted.
     ``dest_mask`` [N, M, C]; ``send_if_empty`` bool, [N, C] or [N, M, C]."""
-    send_if_empty = torch.as_tensor(send_if_empty, dtype=torch.bool,
-                                    device=dest_mask.device)
+    if not isinstance(send_if_empty, torch.Tensor):
+        send_if_empty = torch.full((), send_if_empty, dtype=torch.bool,
+                                   device=dest_mask.device)
     if send_if_empty.dim() == 2:
         send_if_empty = _v(send_if_empty)
     E = spec.E
@@ -430,13 +431,35 @@ def _emit_hup_to_self(spec, n, ob, kind, enable):
 # ---------------------------------------------------------------------------
 
 
+def _pend_reply(spec, ob: Outbox, to, enable, term, index, reject, hint,
+                logterm) -> Outbox:
+    """Record a MsgAppResp intent to destination ``to`` [N, C] where
+    ``enable`` (deferred emission; last writer wins per destination). The
+    values are [N, C] tensors or Python numbers."""
+    def v(x):
+        return _v(x) if isinstance(x, torch.Tensor) else x
+
+    p = ob.pend
+    hot = (_ids(spec, to) == _v(to)) & _v(enable)
+    return ob.replace(pend=p.replace(
+        rep_any=p.rep_any | hot,
+        rep_term=torch.where(hot, v(term), p.rep_term),
+        rep_index=torch.where(hot, v(index), p.rep_index),
+        rep_reject=torch.where(hot, v(reject), p.rep_reject),
+        rep_hint=torch.where(hot, v(hint), p.rep_hint),
+        rep_logterm=torch.where(hot, v(logterm), p.rep_logterm),
+    ))
+
+
 def handle_append_entries(cfg, spec, n, ob, m: Msg, enable):
     """raft.handleAppendEntries (raft.go:1475-1511)."""
     below = m.index < n.commit
-    ob = emit_one(spec, ob, m.frm,
-                  make_msg(spec, n.term, type=MSG_APP_RESP, term=n.term,
-                           frm=n.nid, index=n.commit),
-                  enable & below, fields=("index",))
+    commit0 = n.commit      # the below-commit reply carries the pre-append commit
+    if not cfg.deferred_emit:
+        ob = emit_one(spec, ob, m.frm,
+                      make_msg(spec, n.term, type=MSG_APP_RESP, term=n.term,
+                               frm=n.nid, index=n.commit),
+                      enable & below, fields=("index",))
     en = enable & ~below
     # ring-capacity partial accept: only the storable prefix is taken
     eff_len = logops.clip(n.snap_index + spec.L - m.index, _full(0, m.ent_len),
@@ -447,6 +470,14 @@ def handle_append_entries(cfg, spec, n, ob, m: Msg, enable):
     hint_index = torch.minimum(m.index, n.last_index)
     hint_index = logops.find_conflict_by_term(spec, n, hint_index, m.log_term)
     hint_term, _ = logops.term_at(spec, n, hint_index)
+    if cfg.deferred_emit:
+        # one recorded reply covers the three exclusive cases
+        rej = en & ~ok
+        idx = torch.where(below, commit0, torch.where(ok, lastnewi, m.index))
+        ob = _pend_reply(spec, ob, m.frm, enable, n.term, idx, rej,
+                         torch.where(rej, hint_index, 0),
+                         torch.where(rej, hint_term, 0))
+        return n, ob
     ob = emit_one(spec, ob, m.frm,
                   make_msg(spec, n.term, type=MSG_APP_RESP, term=n.term,
                            frm=n.nid, index=lastnewi),
@@ -497,7 +528,11 @@ def _step_leader(cfg, spec, n: NodeState, ob: Outbox, m: Msg, en):
         n, accepted = append_entries_state(
             cfg, spec, n, m.ent_len, torch.stack(e_data, 1),
             torch.stack(e_type, 1), doprop)
-        n, ob = bcast_append(cfg, spec, n, ob, doprop & accepted)
+        if cfg.deferred_emit:
+            dest = _progress_ids(n) & _v(doprop & accepted)
+            ob = _pend_send(ob, dest, dest)
+        else:
+            n, ob = bcast_append(cfg, spec, n, ob, doprop & accepted)
 
     if _handles(cfg, MSG_APP_RESP):
         # ---- MsgAppResp (raft.go:1106-1283), from peers with a Progress
@@ -570,8 +605,20 @@ def _step_leader(cfg, spec, n: NodeState, ob: Outbox, m: Msg, en):
             send_dest = torch.where(_v(committed_adv), _progress_ids(n),
                                     fhot & _v(updated | decremented))
             send_nonempty = committed_adv | decremented | old_paused_f
-        n, ob = maybe_send_append(cfg, spec, n, ob, send_dest, send_nonempty)
+        if cfg.deferred_emit:
+            # accumulated; the round's flush runs one merged maybe_send_append
+            ob = _pend_send(ob, send_dest, send_dest & _v(send_nonempty))
+        else:
+            n, ob = maybe_send_append(cfg, spec, n, ob, send_dest, send_nonempty)
     return n, ob
+
+
+def _pend_send(ob: Outbox, dest, nonempty) -> Outbox:
+    """Add maybe_send_append destinations (bool [N, M, C]) to the deferred
+    union."""
+    p = ob.pend
+    return ob.replace(pend=p.replace(send_dest=p.send_dest | dest,
+                                     send_nonempty=p.send_nonempty | nonempty))
 
 
 def _step_candidate(cfg, spec, n, ob, m: Msg, en):
@@ -602,9 +649,22 @@ def _step_follower(cfg, spec, n, ob, m: Msg, en):
     if _handles(cfg, MSG_PROP):
         is_prop = en & (m.type == MSG_PROP)
         fwd_ok = (n.lead != NONE_ID) & (not cfg.disable_proposal_forwarding)
-        ob = emit_one(spec, ob, n.lead,
-                      m.replace(frm=n.nid, term=_full(0, n.term)),
-                      is_prop & fwd_ok)
+        if cfg.deferred_emit:
+            # the flush emits one MsgProp per destination; an earlier
+            # forward to the same leader this round is superseded
+            p = ob.pend
+            hot = (_ids(spec, n.lead) == _v(n.lead)) & _v(is_prop & fwd_ok)
+            hot_e = hot.unsqueeze(2)
+            ob = ob.replace(pend=p.replace(
+                fwd_any=p.fwd_any | hot,
+                fwd_len=torch.where(hot, _v(m.ent_len), p.fwd_len),
+                fwd_data=torch.where(hot_e, m.ent_data.unsqueeze(1), p.fwd_data),
+                fwd_type=torch.where(hot_e, m.ent_type.unsqueeze(1), p.fwd_type),
+            ))
+        else:
+            ob = emit_one(spec, ob, n.lead,
+                          m.replace(frm=n.nid, term=_full(0, n.term)),
+                          is_prop & fwd_ok)
 
     lead_msg = en & ((m.type == MSG_APP) | (m.type == MSG_HEARTBEAT)
                      | (m.type == MSG_SNAP))
@@ -647,10 +707,13 @@ def process_message(cfg: RaftConfig, spec: Spec, n: NodeState, ob: Outbox, m: Ms
     if _handles(cfg, MSG_HEARTBEAT, MSG_APP):
         lt_push = (lower & (cfg.check_quorum or cfg.pre_vote)
                    & ((m.type == MSG_HEARTBEAT) | (m.type == MSG_APP)))
-        ob = emit_one(spec, ob, m.frm,
-                      make_msg(spec, n.term, type=MSG_APP_RESP, term=n.term,
-                               frm=n.nid),
-                      lt_push, fields=())
+        if cfg.deferred_emit:
+            ob = _pend_reply(spec, ob, m.frm, lt_push, n.term, 0, False, 0, 0)
+        else:
+            ob = emit_one(spec, ob, m.frm,
+                          make_msg(spec, n.term, type=MSG_APP_RESP, term=n.term,
+                                   frm=n.nid),
+                          lt_push, fields=())
     if _handles(cfg, MSG_PRE_VOTE):
         lt_prevote = lower & (m.type == MSG_PRE_VOTE)
         ob = emit_one(spec, ob, m.frm,
@@ -744,13 +807,35 @@ def compact_inbox(spec: Spec, flat: Msg, bound: int) -> Msg:
     return compact_slots(flat, B)
 
 
+def _flush_deferred(cfg, spec, n: NodeState, ob: Outbox):
+    """The PendingWire intents of the message loop as slots (raft.py
+    _flush_deferred): one MsgAppResp emit, one proposal-forward emit and
+    one merged maybe_send_append, once per round."""
+    p = ob.pend
+    base = bcast(spec, make_msg(spec, n.term))
+    frm = _v(n.nid).expand(p.rep_term.shape)
+    rep = base.replace(
+        type=torch.where(p.rep_any, MSG_APP_RESP, MSG_NONE).to(I32),
+        term=p.rep_term, frm=frm, index=p.rep_index, reject=p.rep_reject,
+        reject_hint=p.rep_hint, log_term=p.rep_logterm)
+    ob = emit(spec, ob, p.rep_any, rep, fields=("index", "reject_hint", "log_term"))
+    fwd = base.replace(
+        type=torch.where(p.fwd_any, MSG_PROP, MSG_NONE).to(I32), frm=frm,
+        ent_len=p.fwd_len, ent_data=p.fwd_data, ent_type=p.fwd_type)
+    ob = emit(spec, ob, p.fwd_any, fwd, fields=("ent_len", "ent_data", "ent_type"))
+    return maybe_send_append(cfg, spec, n, ob, p.send_dest, p.send_nonempty)
+
+
 def node_round(cfg: RaftConfig, spec: Spec, n: NodeState, slots: Msg,
                prop_len, prop_data, prop_type, do_hup):
     """One lockstep round for a batch of nodes: [hup, inbox slots..., prop]
-    messages, the coalesced commit refresh, then apply. ``slots`` holds the
-    inbox as delivered, leaves [S, N, (E,) C] (already compacted when
-    cfg.compact_wire). Returns (state, outbox)."""
-    ob = empty_outbox(spec, n.term.shape, n.term.device)
+    messages, the deferred flush, the coalesced commit refresh, then apply.
+    ``slots`` holds the inbox as delivered, leaves [S, N, (E,) C] (already
+    compacted when cfg.compact_wire). Under cfg.sparse_outbox the slot
+    loop's handlers only record PendingWire intents (the JAX scan carries
+    just the state and the PendingWire); the round raises if one wrote the
+    outbox slots, counts or sent commits. Returns (state, outbox)."""
+    ob = empty_outbox(spec, n.term.shape, n.term.device, deferred=cfg.deferred_emit)
     commit0 = n.commit
 
     if "hup" in cfg.local_steps:
@@ -761,8 +846,14 @@ def node_round(cfg: RaftConfig, spec: Spec, n: NodeState, slots: Msg,
 
     if not cfg.compact_wire and cfg.inbox_bound:
         slots = compact_inbox(spec, slots, cfg.inbox_bound)
+    # the identities only: a reference to the immediate form's empty
+    # outbox would keep a whole outbox alive through the loop
+    fixed = ("msgs", "counts", "sent_commit") if cfg.sparse_outbox else ()
+    before = [getattr(ob, f) for f in fixed]
     for s in range(slots.type.shape[0]):
         n, ob = process_message(cfg, spec, n, ob, slots.map(lambda _, x: x[s]))
+    if any(getattr(ob, f) is not x for f, x in zip(fixed, before)):
+        raise RuntimeError("a handler emitted inside the sparse message loop")
 
     if "prop" in cfg.local_steps:
         prop_msg = make_msg(spec, n.term, frm=n.nid,
@@ -770,6 +861,9 @@ def node_round(cfg: RaftConfig, spec: Spec, n: NodeState, slots: Msg,
                             ent_len=prop_len, ent_data=prop_data,
                             ent_type=prop_type)
         n, ob = process_message(cfg, spec, n, ob, prop_msg)
+
+    if cfg.deferred_emit:
+        n, ob = _flush_deferred(cfg, spec, n, ob)
 
     if cfg.coalesce_commit_refresh:
         # one (possibly empty) append to every follower whose messages this

@@ -5,15 +5,24 @@ tensor per field for a whole batch of nodes: a per-node scalar is [N, C],
 a per-node vector is [N, F, C] (peer arrays F = M, the log ring F = L),
 with N the node axis (a fleet's member axis) and C the clusters axis,
 minor. The per-node PRNG key is int32 [N, 2, C] holding the bit patterns
-of the JAX key's two uint32 words (utils/prng.py).
+of the JAX key's two uint32 words (utils/prng.py). ``PackedFleet`` is the
+packed storage form of a fleet (RaftConfig.packed_state).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
-from etcd_tpu_torch.types import NONE_ID, PR_PROBE, ROLE_FOLLOWER, Spec, TensorStruct
+from etcd_tpu_torch.types import (
+    NONE_ID,
+    PR_PROBE,
+    ROLE_FOLLOWER,
+    Spec,
+    TensorStruct,
+    wrap_int32,
+)
 from etcd_tpu_torch.utils import prng
 
 
@@ -157,9 +166,205 @@ def in_config_self(n: NodeState) -> torch.Tensor:
     return (_self_hot(n) & (n.voters | n.voters_out | n.learners)).any(1)
 
 
-def state_bytes_per_group(spec: Spec) -> int:
-    """Resident bytes per group (M nodes) of the dense fleet state, from the
-    leaf dtypes and shapes."""
+# ---------------------------------------------------------------------------
+# Packed fleet storage (RaftConfig.packed_state; etcd_tpu/models/state.py)
+#
+# The same information as NodeState in three planes per node: ``bits``, the
+# narrow fields (roles, ids, vote bitmaps, flags, timers, counters,
+# pr_state, log_type) bit-packed into 32-bit lanes; ``narrow``, the index
+# and term fields as int16; ``wide``, the hashes and log payload words as
+# int32; plus the PRNG key passed through. The bit lanes are the JAX
+# package's uint32 lanes held as int32 bit patterns: they are built in
+# int64 and wrapped, and read with a mask after the (arithmetic) shift, so
+# no sign bit leaks into a field.
+# ---------------------------------------------------------------------------
+
+# Packed timer lanes: the randomized timeout is drawn in [T, 2T), so
+# 2 * election_tick must stay below 2**PACK_TIMER_BITS (build_round checks);
+# the two elapsed counters saturate at the cap (see the JAX module).
+PACK_TIMER_BITS = 10
+_PACK_SATURATING = ("election_elapsed", "heartbeat_elapsed")
+
+_PACK_BOOL_FIELDS = frozenset({
+    "snap_auto_leave", "auto_leave",
+    "probe_sent", "recent_active", "votes_responded", "votes_granted",
+    "voters", "voters_out", "learners", "learners_next",
+    "snap_voters", "snap_voters_out", "snap_learners", "snap_learners_next",
+    "ro_acks",
+})
+
+
+@dataclasses.dataclass
+class PackedFleet(TensorStruct):
+    """A NodeState fleet in packed storage, leaves [M, lanes, C]."""
+    bits: torch.Tensor      # int32 bit patterns of the u32 lanes [M, NB, C]
+    narrow: torch.Tensor    # int16 [M, NI, C]
+    wide: torch.Tensor      # int32 [M, NW, C]
+    rng_key: torch.Tensor   # int32 [M, 2, C], passthrough
+
+
+@functools.lru_cache(maxsize=16)
+def pack_plan(spec: Spec):
+    """The static layout for one Spec, as the JAX pack_plan gives it:
+    (bit_rows, n_lanes, narrow_rows, n_narrow, wide_rows, n_wide). A bit
+    row is (name, bits/element, bias, ((lane, offset) per element)); a
+    plane row is (name, count, offset)."""
+    M, L, R, W = spec.M, spec.L, spec.R, spec.W
+    idb = max(M.bit_length(), 1)          # ids stored with +1 bias: 0..M
+    cnt = max(R.bit_length(), 1)          # queue counters: 0..R
+    tb = PACK_TIMER_BITS
+    bit_fields = (
+        # (name, bits/element, elements, bias)
+        ("nid", idb, 1, 0),
+        ("role", 2, 1, 0),
+        ("lead", idb, 1, 1),
+        ("vote", idb, 1, 1),
+        ("lead_transferee", idb, 1, 1),
+        ("snap_auto_leave", 1, 1, 0),
+        ("auto_leave", 1, 1, 0),
+        ("election_elapsed", tb, 1, 0),
+        ("heartbeat_elapsed", tb, 1, 0),
+        ("randomized_timeout", tb, 1, 0),
+        ("ro_count", cnt, 1, 0),
+        ("ro_pend_count", cnt, 1, 0),
+        ("rs_count", cnt, 1, 0),
+        ("pr_state", 2, M, 0),
+        ("probe_sent", 1, M, 0),
+        ("recent_active", 1, M, 0),
+        ("votes_responded", 1, M, 0),
+        ("votes_granted", 1, M, 0),
+        ("voters", 1, M, 0),
+        ("voters_out", 1, M, 0),
+        ("learners", 1, M, 0),
+        ("learners_next", 1, M, 0),
+        ("snap_voters", 1, M, 0),
+        ("snap_voters_out", 1, M, 0),
+        ("snap_learners", 1, M, 0),
+        ("snap_learners_next", 1, M, 0),
+        ("infl_start", max((W - 1).bit_length(), 1), M, 0),
+        ("infl_count", max(W.bit_length(), 1), M, 0),
+        ("ro_acks", 1, R * M, 0),
+        ("ro_from", idb, R, 1),
+        ("ro_pend_from", idb, R, 1),
+        ("log_type", 2, L, 0),
+    )
+    # greedy lane fill; an element never straddles two lanes
+    bit_rows, lane, off = [], 0, 0
+    for name, bits, count, bias in bit_fields:
+        slots = []
+        for _ in range(count):
+            if off + bits > 32:
+                lane, off = lane + 1, 0
+            slots.append((lane, off))
+            off += bits
+        bit_rows.append((name, bits, bias, tuple(slots)))
+    n_lanes = lane + 1
+
+    def runs(fields):
+        rows, o = [], 0
+        for name, count in fields:
+            rows.append((name, count, o))
+            o += count
+        return tuple(rows), o
+
+    narrow_rows, n_narrow = runs((
+        ("term", 1), ("commit", 1), ("last_index", 1), ("applied", 1),
+        ("snap_index", 1), ("snap_term", 1), ("pending_conf_index", 1),
+        ("uncommitted_size", 1),
+        ("match", M), ("next_idx", M), ("pending_snapshot", M),
+        ("infl_ends", M * W),
+        ("log_term", L),
+        ("ro_ctx", R), ("ro_index", R), ("ro_pend_ctx", R),
+        ("rs_ctx", R), ("rs_index", R),
+    ))
+    wide_rows, n_wide = runs((
+        ("applied_hash", 1), ("snap_hash", 1), ("log_data", L),
+    ))
+    covered = ({r[0] for r in bit_rows} | {r[0] for r in narrow_rows}
+               | {r[0] for r in wide_rows} | {"rng_key"})
+    if covered != set(NodeState.names()):
+        raise ValueError("pack_plan out of sync with NodeState: missing="
+                         f"{sorted(set(NodeState.names()) - covered)} extra="
+                         f"{sorted(covered - set(NodeState.names()))}")
+    return tuple(bit_rows), n_lanes, narrow_rows, n_narrow, wide_rows, n_wide
+
+
+def _rows3(x: torch.Tensor) -> torch.Tensor:
+    """Fleet leaf [M, C] or [M, count, C] -> [M, count, C]."""
+    return x.unsqueeze(1) if x.dim() == 2 else x
+
+
+def pack_fleet(spec: Spec, state: NodeState) -> PackedFleet:
+    """NodeState fleet -> packed storage. Values are masked to their widths
+    (the elapsed timers saturate instead), as the JAX function does."""
+    bit_rows, n_lanes, narrow_rows, _, wide_rows, _ = pack_plan(spec)
+    lanes = [None] * n_lanes
+    for name, bits, bias, slots in bit_rows:
+        v = _rows3(getattr(state, name)).to(torch.int64)
+        if name not in _PACK_BOOL_FIELDS:
+            v = v + bias
+            if name in _PACK_SATURATING:
+                v = torch.clamp(v, max=(1 << bits) - 1)
+            v = v & ((1 << bits) - 1)
+        for k, (lane, off) in enumerate(slots):
+            word = v[:, k] << off
+            lanes[lane] = word if lanes[lane] is None else lanes[lane] | word
+    return PackedFleet(
+        bits=wrap_int32(torch.stack(lanes, 1)),
+        narrow=torch.cat([_rows3(getattr(state, name)).to(torch.int16)
+                          for name, _, _ in narrow_rows], 1),
+        wide=torch.cat([_rows3(getattr(state, name)).to(torch.int32)
+                        for name, _, _ in wide_rows], 1),
+        rng_key=state.rng_key)
+
+
+def _unpack_bits_row(packed: PackedFleet, name, bits, bias, slots):
+    mask = (1 << bits) - 1
+    v = torch.stack([(packed.bits[:, lane] >> off) & mask for lane, off in slots], 1)
+    x = (v != 0) if name in _PACK_BOOL_FIELDS else v - bias
+    return x[:, 0] if len(slots) == 1 else x
+
+
+def _unpack_plane_row(plane: torch.Tensor, count, off):
+    x = plane[:, off:off + count].to(torch.int32)
+    return x[:, 0] if count == 1 else x
+
+
+def unpack_fleet(spec: Spec, packed: PackedFleet) -> NodeState:
+    """Packed storage -> NodeState fleet, the exact inverse of pack_fleet on
+    every in-contract value."""
+    bit_rows, _, narrow_rows, _, wide_rows, _ = pack_plan(spec)
+    out = {"rng_key": packed.rng_key}
+    for name, bits, bias, slots in bit_rows:
+        out[name] = _unpack_bits_row(packed, name, bits, bias, slots)
+    for rows, plane in ((narrow_rows, packed.narrow), (wide_rows, packed.wide)):
+        for name, count, off in rows:
+            out[name] = _unpack_plane_row(plane, count, off)
+    return NodeState(**out)
+
+
+def unpack_field(spec: Spec, packed: PackedFleet, name: str) -> torch.Tensor:
+    """One NodeState field off the packed storage, without unpacking the
+    rest of the fleet."""
+    if name == "rng_key":
+        return packed.rng_key
+    bit_rows, _, narrow_rows, _, wide_rows, _ = pack_plan(spec)
+    for fname, bits, bias, slots in bit_rows:
+        if fname == name:
+            return _unpack_bits_row(packed, name, bits, bias, slots)
+    for rows, plane in ((narrow_rows, packed.narrow), (wide_rows, packed.wide)):
+        for fname, count, off in rows:
+            if fname == name:
+                return _unpack_plane_row(plane, count, off)
+    raise KeyError(name)
+
+
+def state_bytes_per_group(spec: Spec, packed: bool = False) -> int:
+    """Resident bytes per group (M nodes) of the fleet state in the given
+    storage form, from the leaf dtypes and shapes."""
+    if packed:
+        _, nb, _, ni, _, nw = pack_plan(spec)
+        return spec.M * (nb * 4 + ni * 2 + nw * 4 + 2 * 4)
     n = init_node(spec, torch.zeros((1, 1), dtype=torch.int32),
                   torch.ones((1, spec.M, 1), dtype=torch.bool))
     return spec.M * sum(leaf.numel() * leaf.element_size()

@@ -1,10 +1,13 @@
 """Per-node outbox: K message slots per destination with overflow-drop
-(etcd_tpu/ops/outbox.py, immediate emission).
+(etcd_tpu/ops/outbox.py), and the deferred-emission accumulator.
 
 A batch of N nodes holds Msg leaves [N, K, M(dest), C] (ent leaves
 [N, K, M, E, C]) plus per-destination fill counts [N, M, C]. Over a fleet
 the node axis is the sender, so the outbox is the [from, K, to, (E,) C]
-delivery view the engine masks and compacts, with no copy.
+delivery view the engine masks and compacts, with no copy. Under
+``RaftConfig.deferred_emit`` the steady handlers record per-destination
+intents in a ``PendingWire`` ([N, M, C] leaves, the forwarded entries
+[N, M, E, C]) that the round turns into slots once, after its message loop.
 """
 from __future__ import annotations
 
@@ -16,16 +19,52 @@ from etcd_tpu_torch.types import ENT_FIELDS, Msg, Spec, TensorStruct, empty_msg
 
 
 @dataclasses.dataclass
+class PendingWire(TensorStruct):
+    """Deferred-emission intents (etcd_tpu/ops/outbox.py PendingWire), last
+    writer wins per destination: the MsgAppResp reply, the union of
+    maybe_send_append destinations, and the proposal forward."""
+    rep_any: torch.Tensor        # bool [N, M, C]
+    rep_term: torch.Tensor       # i32 [N, M, C]
+    rep_index: torch.Tensor
+    rep_reject: torch.Tensor     # bool
+    rep_hint: torch.Tensor
+    rep_logterm: torch.Tensor
+    send_dest: torch.Tensor      # bool [N, M, C]
+    send_nonempty: torch.Tensor  # bool [N, M, C]
+    fwd_any: torch.Tensor        # bool [N, M, C]
+    fwd_len: torch.Tensor        # i32 [N, M, C]
+    fwd_data: torch.Tensor       # i32 [N, M, E, C]
+    fwd_type: torch.Tensor       # i32 [N, M, E, C]
+
+
+def empty_pending(spec: Spec, shape, device) -> PendingWire:
+    """No intents, for a batch (N, C)."""
+    N, C = shape
+
+    def z(dtype, *f):
+        return torch.zeros((N, spec.M) + f + (C,), dtype=dtype, device=device)
+
+    i, b = torch.int32, torch.bool
+    return PendingWire(rep_any=z(b), rep_term=z(i), rep_index=z(i),
+                       rep_reject=z(b), rep_hint=z(i), rep_logterm=z(i),
+                       send_dest=z(b), send_nonempty=z(b), fwd_any=z(b),
+                       fwd_len=z(i), fwd_data=z(i, spec.E), fwd_type=z(i, spec.E))
+
+
+@dataclasses.dataclass
 class Outbox(TensorStruct):
     msgs: Msg
     counts: torch.Tensor       # i32 [N, M, C]
     # highest commit index carried by any message sent to each destination
     # this round (0 = none); read by the coalesced end-of-round commit flush
     sent_commit: torch.Tensor  # i32 [N, M, C]
+    # deferred-emission accumulator; None unless cfg.deferred_emit
+    pend: PendingWire | None = None
 
 
-def empty_outbox(spec: Spec, shape, device) -> Outbox:
-    """All-zero slots (``frm`` included) for a batch (N, C)."""
+def empty_outbox(spec: Spec, shape, device, deferred: bool = False) -> Outbox:
+    """All-zero slots (``frm`` included) for a batch (N, C), with an empty
+    PendingWire when ``deferred``."""
     N, C = shape
     K, M, E = spec.K, spec.M, spec.E
 
@@ -35,7 +74,8 @@ def empty_outbox(spec: Spec, shape, device) -> Outbox:
 
     z = torch.zeros((N, M, C), dtype=torch.int32, device=device)
     return Outbox(msgs=empty_msg(spec, shape, device).map(mk), counts=z,
-                  sent_commit=z.clone())
+                  sent_commit=z.clone(),
+                  pend=empty_pending(spec, shape, device) if deferred else None)
 
 
 def make_msg(spec: Spec, like: torch.Tensor, **kw) -> Msg:
@@ -46,7 +86,10 @@ def make_msg(spec: Spec, like: torch.Tensor, **kw) -> Msg:
     conv = {}
     for k, v in kw.items():
         ref = getattr(base, k)
-        v = torch.as_tensor(v, dtype=ref.dtype, device=like.device)
+        if isinstance(v, torch.Tensor):
+            v = v.to(ref.dtype)
+        else:   # a device fill, not a copy from the host (CUDA-graph safe)
+            v = torch.full((), v, dtype=ref.dtype, device=like.device)
         conv[k] = v.expand(ref.shape)
     return base.replace(**conv)
 

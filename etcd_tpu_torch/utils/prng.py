@@ -70,7 +70,7 @@ def fold_in(key: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
 def split2(key: torch.Tensor):
     """``jax.random.split(key)`` into (new_key, subkey)."""
     k0, k1 = _words(key)
-    cnt = torch.tensor([0, 1], dtype=torch.int64, device=key.device)
+    cnt = torch.arange(2, dtype=torch.int64, device=key.device)
     cnt = cnt.view((2,) + (1,) * k0.dim())
     y0, y1 = threefry2x32(k0, k1, torch.zeros_like(cnt), cnt)
     return _pair(y0[0], y1[0]), _pair(y0[1], y1[1])

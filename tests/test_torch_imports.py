@@ -1,5 +1,6 @@
-"""The port stands alone: no jax, flax or etcd_tpu import anywhere in it, a
-CUDA default that raises where there is no card, and a refusal of the
+"""The port stands alone: no jax, flax or etcd_tpu import anywhere in it or
+in chip_smoke.py, every module importable with those blocked, a CUDA
+default that raises where there is no card, and a refusal of the
 configurations it does not implement yet."""
 import ast
 import dataclasses
@@ -10,8 +11,10 @@ import sys
 import pytest
 import torch
 
-from etcd_tpu_torch import drive
+from etcd_tpu_torch import bench, drive
 from etcd_tpu_torch.models import engine as teng
+from etcd_tpu_torch.models.metrics import build_metered_round, zero_metrics
+from etcd_tpu_torch.parallel.mesh import build_scan_rounds
 from etcd_tpu_torch.types import MSG_HEARTBEAT
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -42,13 +45,19 @@ def test_no_forbidden_imports_in_the_package():
 
 def test_imports_and_runs_a_round_with_jax_blocked():
     """In a fresh interpreter where importing jax, flax or etcd_tpu fails,
-    the port imports and runs one CPU round at C=2."""
+    every module of the port (the bench entry point included) imports, and
+    one CPU round of the settle program and one of bench.py's packed,
+    deferred and sparse steady program run at C=2."""
     code = "\n".join([
         "import sys",
         "for m in ('jax', 'jaxlib', 'flax', 'etcd_tpu'):",
         "    sys.modules[m] = None",
-        "import torch",
+        "import importlib, pkgutil, torch",
         "torch.set_num_threads(1)",
+        "import etcd_tpu_torch",
+        "for mod in pkgutil.walk_packages(etcd_tpu_torch.__path__, 'etcd_tpu_torch.'):",
+        "    importlib.import_module(mod.name)",
+        "import etcd_tpu_torch.bench",
         "from etcd_tpu_torch import drive",
         "from etcd_tpu_torch.models.engine import build_round, empty_inbox, init_fleet",
         "spec = drive.bench_spec(); cfg = drive.settle_config(spec)",
@@ -59,6 +68,11 @@ def test_imports_and_runs_a_round_with_jax_blocked():
         "st, ib = build_round(cfg, spec)(st, ib, z2, zp, zp, z2, hup, no,",
         "                                torch.ones((5, 5, 2), dtype=torch.bool))",
         "assert int((ib.type != 0).sum()) == 8, ib.type",
+        "from etcd_tpu_torch import bench, drive",
+        "from etcd_tpu_torch.models.state import pack_fleet",
+        "_, steady = bench.configs(bench.read_knobs({'BENCH_C': '2'}), spec)",
+        "st, ib = build_round(steady, spec)(pack_fleet(spec, st), ib,",
+        "                                   *drive.steady_inputs(spec, 2, 'cpu'))",
         "assert not any(m in sys.modules and sys.modules[m] is not None",
         "               for m in ('jax', 'flax', 'etcd_tpu'))",
         "print('ok')",
@@ -81,14 +95,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     ib = teng.empty_inbox(spec, 2, True, 4, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         drive.settle_leaders(drive.settle_config(spec), spec, st, ib)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        zero_metrics()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench.run(bench.read_knobs({"BENCH_C": "2"}))
 
 
 UNPORTED = {
-    "deferred_emit": dict(deferred_emit=True),
-    "sparse_outbox": dict(deferred_emit=True, sparse_outbox=True,
-                          message_classes=(1, 2, 14), local_steps=("prop",)),
-    "packed_state": dict(packed_state=True),
-    "fleet_chunks": dict(fleet_chunks=4),
     "conf_change": dict(entry_classes=("normal", "conf_change")),
     "tick": dict(local_steps=("tick", "hup", "prop")),
     "read_index": dict(local_steps=("hup", "prop", "read_index")),
@@ -102,6 +115,34 @@ def test_build_round_refuses_what_the_slice_does_not_implement(what):
     cfg = dataclasses.replace(drive.settle_config(spec), **UNPORTED[what])
     with pytest.raises(NotImplementedError, match=what):
         teng.build_round(cfg, spec)
+
+
+@pytest.mark.parametrize("plane", ["telemetry", "blackbox"])
+def test_build_metered_round_refuses_the_planes_not_ported(plane):
+    spec = drive.bench_spec()
+    with pytest.raises(NotImplementedError, match=plane):
+        build_metered_round(drive.settle_config(spec), spec, **{f"with_{plane}": True})
+
+
+def test_build_scan_rounds_refuses_a_mesh():
+    spec = drive.bench_spec()
+    with pytest.raises(NotImplementedError, match="mesh"):
+        build_scan_rounds(drive.settle_config(spec), spec, mesh=object())
+
+
+PORTED_IN_SLICE_2 = {
+    "deferred_emit": dict(deferred_emit=True),
+    "sparse_outbox": dict(deferred_emit=True, sparse_outbox=True),
+    "packed_state": dict(packed_state=True),
+    "fleet_chunks": dict(fleet_chunks=4),
+}
+
+
+@pytest.mark.parametrize("what", sorted(PORTED_IN_SLICE_2))
+def test_build_round_takes_the_storage_and_emission_forms(what):
+    spec = drive.bench_spec()
+    steady = drive.steady_config(drive.settle_config(spec))
+    teng.build_round(dataclasses.replace(steady, **PORTED_IN_SLICE_2[what]), spec)
 
 
 def test_build_round_takes_the_slice_configs():
