@@ -1,0 +1,130 @@
+"""The chaos driver on the port: ``python -m etcd_tpu_torch.chaos_run``.
+
+The counterpart of chaos_run.py's network-fault tier (BASELINE config #5:
+the network-partition and randomized-drop functional test at fleet scale):
+CHAOS_C groups x CHAOS_ROUNDS rounds of drop, delay and partition faults
+with the safety checks every round (etcd_tpu_torch/harness/chaos.py), in
+fault epochs of 50 rounds and heal epochs of 25, then one JSON line with
+the violation counts, the liveness figures and the verdicts of
+``summarize_chaos``. It exits 0 when the run is safe, recovered and lively.
+
+The knobs, their defaults and their checks are chaos_run.py's: CHAOS_C
+(262,144 on the card, 1,000 on the CPU), CHAOS_ROUNDS, CHAOS_DROP,
+CHAOS_DELAY, CHAOS_PART, CHAOS_SEED, CHAOS_L, CHAOS_BOUND, CHAOS_WIRE16,
+CHAOS_CHUNKS (131,072-group chunks above 262,144 groups on the card),
+CHAOS_SYNC and CHAOS_LIVENESS_FRAC. The tiers the port does not run yet
+exit 2 unless left off: TELEM=0, CHAOS_LEASE=0, CHAOS_BLACKBOX=0,
+CHAOS_CRASH=0, CHAOS_MEMBER=0, APPLY_KEYS=0, CHAOS_INIT_VOTERS=0 (the
+membership tier's partial boot), CHAOS_PRNG=threefry, and ``--preflight``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+import torch
+
+from etcd_tpu_torch.harness.chaos import run_chaos, summarize_chaos
+from etcd_tpu_torch.types import Spec
+from etcd_tpu_torch.utils.config import RaftConfig
+from etcd_tpu_torch.utils.device import resolve_device
+from etcd_tpu_torch.utils.knobs import env_bool, env_float, env_int, knob_error
+
+PROG = "chaos_run"
+EPOCH_LEN, HEAL_LEN = 50, 25
+
+# knobs of chaos_run.py whose tier the port does not run: only "off" is taken
+OFF_KNOBS = {"TELEM": "0", "CHAOS_LEASE": "0", "CHAOS_BLACKBOX": "0",
+             "CHAOS_CRASH": "0", "CHAOS_MEMBER": "0", "APPLY_KEYS": "0",
+             "CHAOS_INIT_VOTERS": "0", "CHAOS_PRNG": "threefry"}
+
+
+def read_knobs(environ=None, on_card: bool = True) -> dict:
+    """The CHAOS_* knobs, validated before any device work (exit 2)."""
+    env = os.environ if environ is None else environ
+    for name, off in OFF_KNOBS.items():
+        if name in env and env[name] != off and not _is_zero(env[name]):
+            knob_error(PROG, f"{name}={env[name]!r}: etcd_tpu_torch runs the network "
+                             f"tier only; set {name}={off}")
+    k = {
+        "drop_p": env_float(PROG, "CHAOS_DROP", "0.02", 0.0, 1.0, environ=env),
+        "delay_p": env_float(PROG, "CHAOS_DELAY", "0.05", 0.0, 1.0, environ=env),
+        "partition_p": env_float(PROG, "CHAOS_PART", "0.1", 0.0, 1.0, environ=env),
+        "liveness_frac": env_float(PROG, "CHAOS_LIVENESS_FRAC", "0.2", 0.0, 1.0,
+                                   environ=env),
+        "seed": env_int(PROG, "CHAOS_SEED", "0", environ=env),
+        "sync": env_bool(PROG, "CHAOS_SYNC", "0", environ=env),
+        "wire16": env_bool(PROG, "CHAOS_WIRE16", "1", environ=env),
+    }
+    C = env_int(PROG, "CHAOS_C", "262144" if on_card else "1000", 1, environ=env)
+    k["C"] = C
+    k["rounds"] = env_int(PROG, "CHAOS_ROUNDS", "200", 1, environ=env)
+    k["L"] = env_int(PROG, "CHAOS_L", "16", 1, environ=env)
+    k["bound"] = env_int(PROG, "CHAOS_BOUND", "4", 0, environ=env)
+    k["chunks"] = env_int(
+        PROG, "CHAOS_CHUNKS",
+        str(max(1, C // 131072)) if on_card and C > 262144 else "1", 1, environ=env)
+    return k
+
+
+def _is_zero(raw: str) -> bool:
+    try:
+        return float(raw) == 0
+    except ValueError:
+        return False
+
+
+def spec_and_config(k: dict) -> tuple[Spec, RaftConfig]:
+    """chaos_run.py's geometry: bench.py's Spec at CHAOS_L, and the full
+    program with pre-vote, check-quorum, the inbox bound and the int16
+    wire (chaos_run.py:200-230)."""
+    spec = Spec(M=5, L=k["L"], E=1, K=2, W=4, R=2, A=2)
+    cfg = RaftConfig(pre_vote=True, check_quorum=True, max_inflight=4,
+                     inbox_bound=k["bound"], coalesce_commit_refresh=True,
+                     wire_int16=k["wire16"], fleet_chunks=k["chunks"])
+    return spec, cfg
+
+
+def run(k: dict, device=None, end=None) -> dict:
+    """One chaos run at the knobs ``k``; the JSON line's dict."""
+    dev = resolve_device(device)
+    spec, cfg = spec_and_config(k)
+    t0 = time.perf_counter()
+    rep = run_chaos(spec, cfg, C=k["C"], rounds=k["rounds"], epoch_len=EPOCH_LEN,
+                    heal_len=HEAL_LEN, seed=k["seed"], drop_p=k["drop_p"],
+                    delay_p=k["delay_p"], partition_p=k["partition_p"],
+                    sync_dispatch=k["sync"], device=dev, end=end)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    rep["elapsed_s"] = round(time.perf_counter() - t0, 1)
+    rep["platform"] = "gpu" if dev.type == "cuda" else dev.type
+    rep.update(summarize_chaos(rep, rounds=k["rounds"], epoch_len=EPOCH_LEN,
+                               heal_len=HEAL_LEN, liveness_frac=k["liveness_frac"]))
+    # the lease and KV apply-plane tiers are off (OFF_KNOBS): their gates
+    # hold vacuously, as in chaos_run.py with CHAOS_LEASE=0 and APPLY_KEYS=0
+    rep["lease_safe"] = True
+    rep["apply_parity_ok"] = True
+    return rep
+
+
+def main(argv=None, device=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv:
+        knob_error(PROG, f"unknown argument(s): {' '.join(argv)} (etcd_tpu_torch's "
+                         "chaos_run takes none, --preflight included; configure via "
+                         "CHAOS_* knobs)")
+    on_card = device is None or torch.device(device).type == "cuda"
+    k = read_knobs(on_card=on_card)
+    rep = run(k, device)
+    print(json.dumps(rep), flush=True)
+    if on_card:
+        print(f"{PROG}: peak device memory {torch.cuda.max_memory_allocated()} B "
+              "(torch.cuda.max_memory_allocated over the whole run)", file=sys.stderr)
+    ok = rep["safe"] and rep["recovered"] and rep["lively"]
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -24,7 +24,12 @@ from etcd_tpu_torch.models.state import NodeState
 from etcd_tpu_torch.types import (
     MSG_APP,
     MSG_APP_RESP,
+    MSG_HUP,
+    MSG_PRE_VOTE,
+    MSG_PRE_VOTE_RESP,
     MSG_PROP,
+    MSG_VOTE,
+    MSG_VOTE_RESP,
     PR_SNAPSHOT,
     ROLE_LEADER,
     Msg,
@@ -41,14 +46,27 @@ def bench_spec() -> Spec:
     return Spec(M=5, L=16, E=1, K=2, W=4, R=2, A=2)
 
 
+# the message classes of the settle traffic: the election cascade a MsgHup
+# starts, plus steady replication (no tick, so no heartbeat, check-quorum
+# step, snapshot, read or transfer)
+SETTLE_CLASSES = (
+    MSG_HUP, MSG_PRE_VOTE, MSG_PRE_VOTE_RESP, MSG_VOTE, MSG_VOTE_RESP,
+    MSG_APP, MSG_APP_RESP, MSG_PROP,
+)
+
+
 def settle_config(spec: Spec) -> RaftConfig:
-    """bench.py:385-389 (inbox bound M-1, int16 compact wire). The settle
-    rounds never tick and inject no read-index requests, so their local
-    steps are the MsgHup and MsgProp injections."""
+    """bench.py:385-389 (inbox bound M-1, int16 compact wire), specialised
+    to what its rounds carry: they never tick and inject no read-index
+    request, so the local steps are the MsgHup and MsgProp injections, the
+    message classes SETTLE_CLASSES and the entries normal ones
+    (tests/test_torch_round.py holds it equal to bench.py's full settle
+    program)."""
     return RaftConfig(pre_vote=True, check_quorum=True, max_inflight=min(4, spec.W),
                       inbox_bound=spec.M - 1, coalesce_commit_refresh=True,
                       wire_int16=True, compact_wire=True,
-                      local_steps=("hup", "prop"))
+                      local_steps=("hup", "prop"), message_classes=SETTLE_CLASSES,
+                      entry_classes=("normal",))
 
 
 def steady_config(settle: RaftConfig) -> RaftConfig:

@@ -23,13 +23,7 @@ from etcd_tpu_torch.models.state import (
     pack_fleet,
     unpack_fleet,
 )
-from etcd_tpu_torch.types import (
-    ENT_FIELDS,
-    PORTED_CLASSES,
-    Msg,
-    Spec,
-    empty_msg,
-)
+from etcd_tpu_torch.types import ENT_FIELDS, Msg, Spec, empty_msg
 from etcd_tpu_torch.utils.config import RaftConfig
 from etcd_tpu_torch.utils.device import resolve_device
 
@@ -121,28 +115,16 @@ def init_fleet(spec: Spec, C: int, voters: torch.Tensor | None = None,
                      mask(learners, False), seeds, election_tick)
 
 
-def _unported(cfg: RaftConfig) -> str | None:
-    """The first part of ``cfg`` this port does not implement yet, or None."""
-    if cfg.entry_classes is not None and "conf_change" in cfg.entry_classes:
-        return 'entry_classes "conf_change" (the conf-change apply block)'
-    for step in ("tick", "read_index"):
-        if step in cfg.local_steps:
-            return f'local step "{step}"'
-    if cfg.message_classes is not None:
-        extra = set(cfg.message_classes) - set(PORTED_CLASSES)
-        if extra:
-            return f"message classes {sorted(extra)}"
-    return None
-
-
 def build_round(cfg: RaftConfig, spec: Spec, with_drop_count: bool = False):
     """Returns round_fn(state, inbox, prop_len, prop_data, prop_type, ri_ctx,
     do_hup, do_tick, keep_mask) -> (state, next_inbox), the signature and
     shapes of the JAX round: prop_len/ri_ctx/do_hup/do_tick [M, C],
-    prop_data/prop_type [M, E, C], keep_mask bool [M(from), M(to), C]. The
-    tick and read-index inputs are unused, as in a JAX program built
-    without those local steps. The round runs on the device its tensors are
-    on; on a CUDA device the compaction is the hand-written kernel.
+    prop_data/prop_type [M, E, C], keep_mask bool [M(from), M(to), C]. An
+    input whose local step ``cfg.local_steps`` leaves out is unused, as in
+    the JAX program. The round runs on the device its tensors are on; on a
+    CUDA device the compactions (``compact_wire``'s at the round boundary,
+    or the in-round ``compact_inbox`` of ``inbox_bound``) are the
+    hand-written kernel.
 
     ``with_drop_count``: also return the number of emitted messages the
     keep-mask (and, under compact_wire, the inbox bound) dropped, a 0-dim
@@ -151,13 +133,7 @@ def build_round(cfg: RaftConfig, spec: Spec, with_drop_count: bool = False):
     (inside each chunk under fleet_chunks > 1). Under fleet_chunks > 1 the
     round writes its results into the state and inbox it was given (their
     contiguous leaves; the JAX program donates them), so a caller that
-    needs its input afterwards passes a copy.
-
-    Raises NotImplementedError for configurations this port does not
-    implement yet (see ``_unported``)."""
-    missing = _unported(cfg)
-    if missing:
-        raise NotImplementedError(f"etcd_tpu_torch does not implement {missing} yet")
+    needs its input afterwards passes a copy."""
     if cfg.packed_state and 2 * cfg.election_tick >= (1 << PACK_TIMER_BITS):
         raise ValueError(
             f"packed_state timer lanes hold {PACK_TIMER_BITS} bits; "
@@ -176,7 +152,7 @@ def build_round(cfg: RaftConfig, spec: Spec, with_drop_count: bool = False):
             slots = _unflatten_inbox(spec, inbox).map(     # [from*K, to, (E,) C]
                 lambda _, x: x.reshape((M * spec.K,) + x.shape[2:]))
         state, ob = node_round(cfg, spec, state, slots, prop_len, prop_data,
-                               prop_type, do_hup)
+                               prop_type, ri_ctx, do_hup, do_tick)
         msgs = ob.msgs                                     # [from, K, to, (E,) C]
         emitted = (msgs.type != 0).sum() if with_drop_count else None
         # self-loops (MsgHup-to-self) are local, never subject to faults
@@ -234,3 +210,53 @@ def build_round(cfg: RaftConfig, spec: Spec, with_drop_count: bool = False):
         return state, inbox
 
     return round_fn
+
+
+class RaftEngine:
+    """Lockstep driver for a fleet of C x M-member Raft groups
+    (etcd_tpu/models/engine.py RaftEngine): the fleet, its inbox and the
+    keep-mask, stepped by ``build_round``. Every round's inputs stay live
+    (no donation), so a caller may keep ``engine.state`` across steps."""
+
+    def __init__(self, spec: Spec = Spec(), cfg: RaftConfig = RaftConfig(),
+                 C: int = 1, voters=None, learners=None, seed: int = 0,
+                 device=None):
+        self.spec, self.cfg, self.C = spec, cfg, C
+        self.device = resolve_device(device)
+        self.state = init_fleet(spec, C, voters, learners, seed,
+                                election_tick=cfg.election_tick, device=self.device)
+        if cfg.packed_state:
+            self.state = pack_fleet(spec, self.state)
+        self.inbox = empty_inbox(
+            spec, C, wire_int16=cfg.wire_int16,
+            compact_bound=cfg.inbox_bound if cfg.compact_wire else 0,
+            device=self.device)
+        self.keep_mask = torch.ones((spec.M, spec.M, C), dtype=torch.bool,
+                                    device=self.device)
+        self._round = build_round(cfg, spec)
+
+    def step(self, prop_len=None, prop_data=None, prop_type=None, ri_ctx=None,
+             do_hup=None, do_tick=False):
+        """Inputs in the device layout (numpy arrays or tensors):
+        prop_len/ri_ctx/do_hup/do_tick [M, C]; prop_data/prop_type [M, E, C].
+        A missing input is zero; ``do_tick`` may be one bool for all."""
+        C, M, E = self.C, self.spec.M, self.spec.E
+        dev = self.device
+
+        def arg(x, shape, dtype):
+            if x is None:
+                return torch.zeros(shape, dtype=dtype, device=dev)
+            return torch.as_tensor(x).to(device=dev, dtype=dtype)
+
+        if isinstance(do_tick, bool):
+            do_tick = torch.full((M, C), do_tick, dtype=torch.bool, device=dev)
+        i32, b = torch.int32, torch.bool
+        self.state, self.inbox = self._round(
+            self.state, self.inbox, arg(prop_len, (M, C), i32),
+            arg(prop_data, (M, E, C), i32), arg(prop_type, (M, E, C), i32),
+            arg(ri_ctx, (M, C), i32), arg(do_hup, (M, C), b),
+            arg(do_tick, (M, C), b), self.keep_mask)
+        return self.state
+
+    def pending_messages(self) -> int:
+        return int((self.inbox.type != 0).sum())

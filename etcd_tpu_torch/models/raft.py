@@ -1,23 +1,19 @@
-"""The batched Raft state machine (etcd_tpu/models/raft.py), the part the
-settle and steady rounds reach.
+"""The batched Raft state machine (etcd_tpu/models/raft.py).
 
 The JAX package writes each step for ONE node and batches it with
 ``jax.vmap``; here every function takes a batch of nodes directly (node
 scalars [N, C], peer vectors [N, M, C], see models/state.py) and the
 data-dependent control flow of the reference is the same straight-line
 masked update. ``lax.scan`` loops become Python loops over their static
-counts. Handlers exist for the message classes in ``types.PORTED_CLASSES``;
-the JAX handler blocks for the other classes are no-ops on that traffic
-(each is gated on its own message type, or on state only those classes
-change, such as ``lead_transferee`` or the read-index queues), so leaving
-them out keeps the round bit-identical to the full JAX program while only
-those classes are on the wire.
+counts. ``RaftConfig.message_classes`` and ``entry_classes`` drop handler
+blocks from a program as in the JAX package: None keeps every one.
 """
 from __future__ import annotations
 
 import torch
 
-from etcd_tpu_torch.kernels.compact_wire import compact_slots
+from etcd_tpu_torch.kernels.compact_wire import compact_inbox_slots
+from etcd_tpu_torch.models import confchange as ccmod
 from etcd_tpu_torch.models.state import (
     NodeState,
     _self_hot,
@@ -41,22 +37,27 @@ from etcd_tpu_torch.types import (
     CAMPAIGN_FORCE,
     CAMPAIGN_NONE,
     CAMPAIGN_TRANSFER,
-    CC_LEAVE_JOINT,
     ENTRY_CONF_CHANGE,
     ENTRY_NORMAL,
     MSG_APP,
     MSG_APP_RESP,
     MSG_HEARTBEAT,
+    MSG_HEARTBEAT_RESP,
     MSG_HUP,
     MSG_NONE,
     MSG_PRE_VOTE,
     MSG_PRE_VOTE_RESP,
     MSG_PROP,
+    MSG_READ_INDEX,
+    MSG_READ_INDEX_RESP,
     MSG_SNAP,
+    MSG_SNAP_STATUS,
+    MSG_TIMEOUT_NOW,
+    MSG_TRANSFER_LEADER,
+    MSG_UNREACHABLE,
     MSG_VOTE,
     MSG_VOTE_RESP,
     NONE_ID,
-    PORTED_CLASSES,
     PR_PROBE,
     PR_REPLICATE,
     PR_SNAPSHOT,
@@ -69,6 +70,7 @@ from etcd_tpu_torch.types import (
     Msg,
     Spec,
     pack_mask,
+    unpack_mask,
     wrap_int32,
 )
 from etcd_tpu_torch.utils import prng
@@ -125,10 +127,10 @@ def _mix_hash(h, idx, term, data):
 
 
 def _handles(cfg: RaftConfig, *types) -> bool:
-    """Does this program handle any of these message types? None means the
-    classes this port handles (types.PORTED_CLASSES)."""
-    classes = PORTED_CLASSES if cfg.message_classes is None else cfg.message_classes
-    return any(t in classes for t in types)
+    """Does this program handle any of these message types? None handles
+    every class."""
+    return cfg.message_classes is None or any(t in cfg.message_classes
+                                              for t in types)
 
 
 # ---------------------------------------------------------------------------
@@ -362,6 +364,25 @@ def bcast_append(cfg, spec, n, ob, enable):
     return maybe_send_append(cfg, spec, n, ob, _progress_ids(n) & _v(enable), True)
 
 
+def _ro_last_ctx(n: NodeState) -> torch.Tensor:
+    """readOnly.lastPendingRequestCtx (read_only.go:115-121); 0 if none."""
+    last = onehot_sel(n.ro_ctx, torch.clamp(n.ro_count - 1, min=0))
+    return torch.where(n.ro_count > 0, last, 0)
+
+
+def bcast_heartbeat(cfg, spec, n, ob, ctx, enable):
+    """raft.bcastHeartbeat (raft.go:525-541): the commit sent to each
+    destination is min(match, committed) (raft.go:495-511)."""
+    to = _progress_ids(n) & (_ids(spec, n.nid) != _v(n.nid)) & _v(enable)
+    commit = torch.minimum(n.match, _v(n.commit))
+    msg = bcast(spec, make_msg(spec, n.term)).replace(
+        type=torch.where(to, MSG_HEARTBEAT, MSG_NONE).to(I32),
+        term=_v(n.term).expand(to.shape), frm=_v(n.nid).expand(to.shape),
+        commit=commit, context=_v(ctx).expand(to.shape).to(I32))
+    ob = emit(spec, ob, to, msg, fields=("commit",))
+    return n, record_sent_commit(ob, to, commit)
+
+
 # ---------------------------------------------------------------------------
 # campaigning (raft.go:760-845)
 # ---------------------------------------------------------------------------
@@ -419,11 +440,134 @@ def hup(cfg, spec, n, ob, kind, enable):
 
 
 def _emit_hup_to_self(spec, n, ob, kind, enable):
-    """Queue a MsgHup to self for the next round (a pre-candidate that won
-    its pre-vote)."""
+    """Queue a MsgHup to self for the next round (MsgTimeoutNow, or a
+    pre-candidate that won its pre-vote)."""
     return emit_one(spec, ob, n.nid,
                     make_msg(spec, n.term, type=MSG_HUP, frm=n.nid, context=kind),
                     enable, fields=())
+
+
+# ---------------------------------------------------------------------------
+# read-only queue (raft/read_only.go, keyed by integer ctx)
+# ---------------------------------------------------------------------------
+
+
+def _r_ids(spec, like: torch.Tensor) -> torch.Tensor:
+    return torch.arange(spec.R, dtype=I32, device=like.device).view(1, -1, 1)
+
+
+def _rs_push(spec, n: NodeState, ctx, index, enable) -> NodeState:
+    """Surface a ReadState to the local application (raft.go:249)."""
+    pos = torch.clamp(n.rs_count, max=spec.R - 1)
+    can = enable & (n.rs_count < spec.R)
+    sel = (_r_ids(spec, pos) == _v(pos)) & _v(can)
+    return n.replace(
+        rs_ctx=torch.where(sel, _v(ctx), n.rs_ctx),
+        rs_index=torch.where(sel, _v(index), n.rs_index),
+        rs_count=n.rs_count + can.to(I32),
+    )
+
+
+def _acks(spec, n: NodeState) -> torch.Tensor:
+    """ro_acks [N, R*M, C] as [N, R, M, C]."""
+    N, _, C = n.ro_acks.shape
+    return n.ro_acks.view(N, spec.R, spec.M, C)
+
+
+def _ro_add_request(spec, n: NodeState, ctx, frm, enable) -> NodeState:
+    """readOnly.addRequest (read_only.go:39-59); a duplicate ctx is a no-op."""
+    r = _r_ids(spec, ctx)
+    dup = ((n.ro_ctx == _v(ctx)) & (r < _v(n.ro_count))).any(1)
+    can = enable & ~dup & (n.ro_count < spec.R)
+    sel = (r == _v(torch.clamp(n.ro_count, max=spec.R - 1))) & _v(can)
+    return n.replace(
+        ro_ctx=torch.where(sel, _v(ctx), n.ro_ctx),
+        ro_index=torch.where(sel, _v(n.commit), n.ro_index),
+        ro_from=torch.where(sel, _v(frm), n.ro_from),
+        ro_acks=torch.where(sel.unsqueeze(2), False, _acks(spec, n)).reshape(
+            n.ro_acks.shape),
+        ro_count=n.ro_count + can.to(I32),
+    )
+
+
+def _ro_recv_ack(spec, n: NodeState, frm, ctx, enable):
+    """readOnly.recvAck (read_only.go:61-70). Returns (n, found, acks_row)."""
+    in_q = _r_ids(spec, ctx) < _v(n.ro_count)
+    slot_hot = (n.ro_ctx == _v(ctx)) & in_q                   # [N, R, C]
+    found = enable & slot_hot.any(1)
+    fhot = _ids(spec, frm) == _v(frm)                         # [N, M, C]
+    acks = _acks(spec, n) | (slot_hot.unsqueeze(2) & fhot.unsqueeze(1)
+                             & enable.view(enable.shape[0], 1, 1, -1))
+    row = (slot_hot.unsqueeze(2) & acks).any(1)               # [N, M, C]
+    return n.replace(ro_acks=acks.reshape(n.ro_acks.shape)), found, row
+
+
+def _ro_advance_emit(cfg, spec, n: NodeState, ob: Outbox, ctx, enable):
+    """readOnly.advance (read_only.go:72-101) and the response fan-out of
+    stepLeader's MsgHeartbeatResp (raft.go:1304-1309)."""
+    r = _r_ids(spec, ctx)
+    in_q = r < _v(n.ro_count)
+    slot_hot = (n.ro_ctx == _v(ctx)) & in_q
+    found = enable & slot_hot.any(1)
+    # the first hot slot (argmax), 0 when none
+    pos = torch.where(slot_hot, r, spec.R).amin(1)
+    pos = torch.where(pos == spec.R, 0, pos)
+    released = (r <= _v(pos)) & in_q & _v(found)              # [N, R, C]
+    for i in range(spec.R):
+        req_from = n.ro_from[:, i]
+        local = (req_from == NONE_ID) | (req_from == n.nid)
+        n = _rs_push(spec, n, n.ro_ctx[:, i], n.ro_index[:, i],
+                     released[:, i] & local)
+        ob = emit_one(spec, ob, req_from,
+                      make_msg(spec, n.term, type=MSG_READ_INDEX_RESP, term=n.term,
+                               frm=n.nid, index=n.ro_index[:, i],
+                               context=n.ro_ctx[:, i]),
+                      released[:, i] & ~local, fields=("index",))
+    shift = torch.where(found, pos + 1, 0)
+    return n.replace(
+        ro_ctx=logops.roll_left(n.ro_ctx, shift),
+        ro_index=logops.roll_left(n.ro_index, shift),
+        ro_from=logops.roll_left(n.ro_from, shift),
+        ro_acks=logops.roll_left(_acks(spec, n), shift).reshape(n.ro_acks.shape),
+        ro_count=n.ro_count - shift,
+    ), ob
+
+
+def _committed_in_term(spec, n: NodeState) -> torch.Tensor:
+    """raft.committedEntryInCurrentTerm (raft.go:1731-1733)."""
+    t, _ = logops.term_at(spec, n, n.commit)
+    return t == n.term
+
+
+def _is_singleton(spec, n: NodeState) -> torch.Tensor:
+    """ProgressTracker.IsSingleton: exactly one joint voter, and it is self."""
+    vu = _voter_union(n)
+    return (vu.sum(1) == 1) & (vu & _self_hot(n)).any(1)
+
+
+def _send_read_index_response(cfg, spec, n, ob, ctx, frm, enable):
+    """sendMsgReadIndexResponse (raft.go:1827-1843)."""
+    if cfg.read_only_lease_based:
+        local = (frm == NONE_ID) | (frm == n.nid)
+        n = _rs_push(spec, n, ctx, n.commit, enable & local)
+        ob = emit_one(spec, ob, frm,
+                      make_msg(spec, n.term, type=MSG_READ_INDEX_RESP, term=n.term,
+                               frm=n.nid, index=n.commit, context=ctx),
+                      enable & ~local, fields=("index",))
+        return n, ob
+    n = _ro_add_request(spec, n, ctx, frm, enable)
+    n, _, _ = _ro_recv_ack(spec, n, n.nid, ctx, enable)
+    return bcast_heartbeat(cfg, spec, n, ob, ctx, enable)
+
+
+def _release_pending_read_index(cfg, spec, n, ob, enable):
+    """releasePendingReadIndexMessages (raft.go:1813-1825)."""
+    ok = enable & _committed_in_term(spec, n)
+    for i in range(spec.R):
+        n, ob = _send_read_index_response(cfg, spec, n, ob, n.ro_pend_ctx[:, i],
+                                          n.ro_pend_from[:, i],
+                                          ok & (i < n.ro_pend_count))
+    return n.replace(ro_pend_count=torch.where(ok, 0, n.ro_pend_count)), ob
 
 
 # ---------------------------------------------------------------------------
@@ -490,13 +634,63 @@ def handle_append_entries(cfg, spec, n, ob, m: Msg, enable):
     return n, ob
 
 
+def handle_heartbeat(cfg, spec, n, ob, m: Msg, enable):
+    """raft.handleHeartbeat (raft.go:1513-1516)."""
+    n = n.replace(commit=torch.where(enable, logops.commit_to(n, m.commit).commit,
+                                     n.commit))
+    ob = emit_one(spec, ob, m.frm,
+                  make_msg(spec, n.term, type=MSG_HEARTBEAT_RESP, term=n.term,
+                           frm=n.nid, context=m.context),
+                  enable, fields=())
+    return n, ob
+
+
+def handle_snapshot(cfg, spec, n, ob, m: Msg, enable):
+    """raft.handleSnapshot + restore (raft.go:1518-1614), applied at once:
+    the log resets to (sindex, sterm), and the state-machine hash and the
+    config come from the message."""
+    sindex, sterm = m.index, m.log_term
+    stale = sindex <= n.commit
+    mv = unpack_mask(m.c_voters, spec.M)
+    mvo = unpack_mask(m.c_voters_out, spec.M)
+    ml = unpack_mask(m.c_learners, spec.M)
+    mln = unpack_mask(m.c_learners_next, spec.M)
+    in_cs = ((mv | mvo | ml) & _self_hot(n)).any(1)
+    fast_fwd = logops.match_term(spec, n, sindex, sterm)
+    follower = n.role == ROLE_FOLLOWER
+    go = enable & ~stale & follower & in_cs
+    do_restore = go & ~fast_fwd
+    do_fast = go & fast_fwd
+    n = n.replace(commit=torch.where(do_fast, logops.commit_to(n, sindex).commit,
+                                     n.commit))
+    # the split applied hash (see the MsgSnap emit site): low 16 bits from
+    # commit, high 16 from reject_hint
+    shash = wrap_int32((m.reject_hint.to(torch.int64) << 16)
+                       | (m.commit.to(torch.int64) & 0xFFFF))
+    restored = n.replace(
+        last_index=sindex, commit=sindex, applied=sindex, applied_hash=shash,
+        snap_index=sindex, snap_term=sterm, snap_hash=shash,
+        snap_voters=mv, snap_voters_out=mvo, snap_learners=ml,
+        snap_learners_next=mln, snap_auto_leave=m.reject,
+        voters=mv, voters_out=mvo, learners=ml, learners_next=mln,
+        auto_leave=m.reject,
+    )
+    n = tree_where(do_restore, restored, n)
+    ob = emit_one(spec, ob, m.frm,
+                  make_msg(spec, n.term, type=MSG_APP_RESP, term=n.term, frm=n.nid,
+                           index=torch.where(do_restore, n.last_index, n.commit)),
+                  enable & follower, fields=("index",))
+    return n, ob
+
+
 # ---------------------------------------------------------------------------
 # role step functions
 # ---------------------------------------------------------------------------
 
 
 def _step_leader(cfg, spec, n: NodeState, ob: Outbox, m: Msg, en):
-    """stepLeader (raft.go:991-1372): the MsgProp and MsgAppResp arms."""
+    """stepLeader (raft.go:991-1372), less MsgBeat and MsgCheckQuorum, which
+    tick_timers fires directly."""
     ids = _ids(spec, n.nid)
     frm_c = torch.clamp(m.frm, 0, spec.M - 1)
     fhot = ids == _v(m.frm)
@@ -516,7 +710,7 @@ def _step_leader(cfg, spec, n: NodeState, ob: Outbox, m: Msg, en):
         for e in range(spec.E):
             valid = doprop & (e < m.ent_len)
             is_cc = valid & (e_type[e] == ENTRY_CONF_CHANGE)
-            wants_leave = (e_data[e] & CC_LEAVE_JOINT) != 0
+            wants_leave = ccmod.is_leave_joint(e_data[e])
             refused = pend | (already_joint & ~wants_leave) | (~already_joint & wants_leave)
             keep = is_cc & ~refused
             e_type[e] = torch.where(is_cc & refused, ENTRY_NORMAL, e_type[e])
@@ -534,9 +728,34 @@ def _step_leader(cfg, spec, n: NodeState, ob: Outbox, m: Msg, en):
         else:
             n, ob = bcast_append(cfg, spec, n, ob, doprop & accepted)
 
+    # ---- MsgReadIndex (raft.go:1078-1097)
+    if _handles(cfg, MSG_READ_INDEX):
+        is_ri = en & (m.type == MSG_READ_INDEX)
+        singleton = _is_singleton(spec, n)
+        local = (m.frm == NONE_ID) | (m.frm == n.nid)
+        n = _rs_push(spec, n, m.context, n.commit, is_ri & singleton & local)
+        ob = emit_one(spec, ob, m.frm,
+                      make_msg(spec, n.term, type=MSG_READ_INDEX_RESP, term=n.term,
+                               frm=n.nid, index=n.commit, context=m.context),
+                      is_ri & singleton & ~local, fields=("index",))
+        cit = _committed_in_term(spec, n)
+        # defer until the first commit at this term (raft.go:1087-1092)
+        can_defer = is_ri & ~singleton & ~cit & (n.ro_pend_count < spec.R)
+        sel = (_r_ids(spec, m.frm)
+               == _v(torch.clamp(n.ro_pend_count, max=spec.R - 1))) & _v(can_defer)
+        n = n.replace(
+            ro_pend_ctx=torch.where(sel, _v(m.context), n.ro_pend_ctx),
+            ro_pend_from=torch.where(sel, _v(m.frm), n.ro_pend_from),
+            ro_pend_count=n.ro_pend_count + can_defer.to(I32),
+        )
+        n, ob = _send_read_index_response(cfg, spec, n, ob, m.context, m.frm,
+                                          is_ri & ~singleton & cit)
+
+    # ---- messages that need a Progress entry for m.frm (raft.go:1099-1104)
+    has_pr = onehot_sel(_progress_ids(n), frm_c) & (m.frm >= 0)
+
     if _handles(cfg, MSG_APP_RESP):
-        # ---- MsgAppResp (raft.go:1106-1283), from peers with a Progress
-        has_pr = onehot_sel(_progress_ids(n), frm_c) & (m.frm >= 0)
+        # ---- MsgAppResp (raft.go:1106-1283)
         is_ar = en & (m.type == MSG_APP_RESP) & has_pr
         n = n.replace(recent_active=n.recent_active | (fhot & _v(is_ar)))
         match_f = onehot_sel(n.match, frm_c)
@@ -594,6 +813,9 @@ def _step_leader(cfg, spec, n: NodeState, ob: Outbox, m: Msg, en):
         n2, committed_adv = maybe_commit_state(cfg, spec, n)
         committed_adv = committed_adv & updated
         n = tree_where(committed_adv, n2, n)
+        if _handles(cfg, MSG_READ_INDEX):
+            # the pending-read queue fills only in the MsgReadIndex arm
+            n, ob = _release_pending_read_index(cfg, spec, n, ob, committed_adv)
 
         # merged send: refresh/drain to the acking follower or the
         # reject-path re-probe, plus (without coalescing) the commit-advance
@@ -610,6 +832,79 @@ def _step_leader(cfg, spec, n: NodeState, ob: Outbox, m: Msg, en):
             ob = _pend_send(ob, send_dest, send_dest & _v(send_nonempty))
         else:
             n, ob = maybe_send_append(cfg, spec, n, ob, send_dest, send_nonempty)
+
+        if not cfg.deferred_emit or _handles(cfg, MSG_TRANSFER_LEADER):
+            # leadership transfer (raft.go:1278-1281)
+            xfer = updated & (m.frm == n.lead_transferee) & \
+                (onehot_sel(n.match, frm_c) == n.last_index)
+            ob = emit_one(spec, ob, m.frm,
+                          make_msg(spec, n.term, type=MSG_TIMEOUT_NOW, term=n.term,
+                                   frm=n.nid),
+                          xfer, fields=())
+
+    if _handles(cfg, MSG_HEARTBEAT_RESP):
+        # ---- MsgHeartbeatResp (raft.go:1284-1309)
+        is_hr = en & (m.type == MSG_HEARTBEAT_RESP) & has_pr
+        hr = fhot & _v(is_hr)
+        n = n.replace(recent_active=n.recent_active | hr,
+                      probe_sent=torch.where(hr, False, n.probe_sent))
+        n = infl.free_first_one(
+            spec, n, hr & _v(onehot_sel(n.pr_state, frm_c) == PR_REPLICATE)
+            & _v(onehot_sel(infl.full(cfg.max_inflight, n), frm_c)))
+        n, ob = maybe_send_append(
+            cfg, spec, n, ob, hr & _v(onehot_sel(n.match, frm_c) < n.last_index),
+            True)
+        if not cfg.read_only_lease_based:
+            n, found, row = _ro_recv_ack(spec, n, m.frm, m.context,
+                                         is_hr & (m.context != 0))
+            won = quorum.joint_vote_result(n.voters, n.voters_out, row, row) == VOTE_WON
+            n, ob = _ro_advance_emit(cfg, spec, n, ob, m.context, found & won)
+
+    if _handles(cfg, MSG_SNAP_STATUS):
+        # ---- MsgSnapStatus (raft.go:1310-1331)
+        is_ss = (en & (m.type == MSG_SNAP_STATUS) & has_pr
+                 & (onehot_sel(n.pr_state, frm_c) == PR_SNAPSHOT))
+        pend_f = torch.where(m.reject, 0, onehot_sel(n.pending_snapshot, frm_c))
+        probe_next = torch.maximum(onehot_sel(n.match, frm_c) + 1, pend_f + 1)
+        ss = fhot & _v(is_ss)
+        n = n.replace(
+            pr_state=torch.where(ss, PR_PROBE, n.pr_state),
+            next_idx=torch.where(ss, _v(probe_next), n.next_idx),
+            pending_snapshot=torch.where(ss, 0, n.pending_snapshot),
+            probe_sent=torch.where(ss, True, n.probe_sent),
+        )
+        n = infl.reset(n, ss)
+
+    if _handles(cfg, MSG_UNREACHABLE):
+        # ---- MsgUnreachable (raft.go:1332-1338)
+        is_un = (en & (m.type == MSG_UNREACHABLE) & has_pr
+                 & (onehot_sel(n.pr_state, frm_c) == PR_REPLICATE))
+        un = fhot & _v(is_un)
+        n = n.replace(
+            pr_state=torch.where(un, PR_PROBE, n.pr_state),
+            next_idx=torch.where(un, _v(onehot_sel(n.match, frm_c) + 1), n.next_idx),
+            pending_snapshot=torch.where(un, 0, n.pending_snapshot),
+            probe_sent=torch.where(un, False, n.probe_sent),
+        )
+        n = infl.reset(n, un)
+
+    if _handles(cfg, MSG_TRANSFER_LEADER):
+        # ---- MsgTransferLeader (raft.go:1339-1369)
+        is_tl = en & (m.type == MSG_TRANSFER_LEADER) & has_pr
+        ignore = (onehot_sel(n.learners, frm_c) | (m.frm == n.nid)
+                  | (n.lead_transferee == m.frm))
+        do_tl = is_tl & ~ignore
+        n = n.replace(
+            election_elapsed=torch.where(do_tl, 0, n.election_elapsed),
+            lead_transferee=torch.where(do_tl, m.frm, n.lead_transferee),
+        )
+        up_to_date = onehot_sel(n.match, frm_c) == n.last_index
+        ob = emit_one(spec, ob, m.frm,
+                      make_msg(spec, n.term, type=MSG_TIMEOUT_NOW, term=n.term,
+                               frm=n.nid),
+                      do_tl & up_to_date, fields=())
+        n, ob = maybe_send_append(cfg, spec, n, ob, fhot & _v(do_tl & ~up_to_date),
+                                  True)
     return n, ob
 
 
@@ -645,7 +940,7 @@ def _step_candidate(cfg, spec, n, ob, m: Msg, en):
 
 
 def _step_follower(cfg, spec, n, ob, m: Msg, en):
-    """stepFollower (raft.go:1421-1473): proposal forwarding and MsgApp."""
+    """stepFollower (raft.go:1421-1473)."""
     if _handles(cfg, MSG_PROP):
         is_prop = en & (m.type == MSG_PROP)
         fwd_ok = (n.lead != NONE_ID) & (not cfg.disable_proposal_forwarding)
@@ -675,6 +970,27 @@ def _step_follower(cfg, spec, n, ob, m: Msg, en):
     if _handles(cfg, MSG_APP):
         n, ob = handle_append_entries(cfg, spec, n, ob, m,
                                       lead_msg & (m.type == MSG_APP))
+    if _handles(cfg, MSG_HEARTBEAT):
+        n, ob = handle_heartbeat(cfg, spec, n, ob, m,
+                                 lead_msg & (m.type == MSG_HEARTBEAT))
+    if _handles(cfg, MSG_SNAP):
+        n, ob = handle_snapshot(cfg, spec, n, ob, m, lead_msg & (m.type == MSG_SNAP))
+
+    # MsgTransferLeader / MsgReadIndex forwarded to the leader (1445-1451,
+    # 1458-1464)
+    if _handles(cfg, MSG_TRANSFER_LEADER, MSG_READ_INDEX):
+        fwd = (en & ((m.type == MSG_TRANSFER_LEADER) | (m.type == MSG_READ_INDEX))
+               & (n.lead != NONE_ID))
+        ob = emit_one(spec, ob, n.lead, m, fwd)
+
+    # MsgTimeoutNow: campaign at once, without pre-vote (raft.go:1452-1457)
+    if _handles(cfg, MSG_TIMEOUT_NOW):
+        ob = _emit_hup_to_self(spec, n, ob, CAMPAIGN_TRANSFER,
+                               en & (m.type == MSG_TIMEOUT_NOW))
+
+    # MsgReadIndexResp -> a local ReadState (raft.go:1465-1471)
+    if _handles(cfg, MSG_READ_INDEX_RESP):
+        n = _rs_push(spec, n, m.context, m.index, en & (m.type == MSG_READ_INDEX_RESP))
     return n, ob
 
 
@@ -762,20 +1078,71 @@ def process_message(cfg: RaftConfig, spec: Spec, n: NodeState, ob: Outbox, m: Ms
 
 
 # ---------------------------------------------------------------------------
+# tick (raft.go:645-684): returns an election-fire flag instead of
+# campaigning inline; the campaign runs through the round's MsgHup step
+# ---------------------------------------------------------------------------
+
+
+def tick_timers(cfg: RaftConfig, spec: Spec, n: NodeState, ob: Outbox, enable):
+    """Returns (n, ob, fire)."""
+    is_lead = n.role == ROLE_LEADER
+
+    # tickElection for followers and candidates (raft.go:645-654)
+    ee = n.election_elapsed + 1
+    fire = enable & ~is_lead & promotable(n) & (ee >= n.randomized_timeout)
+    n = n.replace(election_elapsed=torch.where(
+        enable & ~is_lead, torch.where(fire, 0, ee), n.election_elapsed))
+
+    # tickHeartbeat for leaders (raft.go:657-684)
+    ee2 = n.election_elapsed + 1
+    et_fire = enable & is_lead & (ee2 >= cfg.election_tick)
+    n = n.replace(election_elapsed=torch.where(
+        enable & is_lead, torch.where(et_fire, 0, ee2), n.election_elapsed))
+    if cfg.check_quorum:
+        # the MsgCheckQuorum step (raft.go:997-1018)
+        sh = _self_hot(n)
+        qa = quorum.joint_vote_result(n.voters, n.voters_out, _progress_ids(n) | sh,
+                                      n.recent_active | sh) == VOTE_WON
+        step_down = et_fire & ~qa
+        n = tree_where(step_down, become_follower_state(
+            cfg, spec, n, n.term, _full(NONE_ID, n.term)), n)
+        still = et_fire & ~step_down
+        n = n.replace(recent_active=torch.where(_v(still), sh & n.recent_active,
+                                                n.recent_active))
+    # abort an unfinished transfer after an election timeout (raft.go:668-671)
+    n = n.replace(lead_transferee=torch.where(
+        et_fire & (n.role == ROLE_LEADER), NONE_ID, n.lead_transferee))
+
+    he = n.heartbeat_elapsed + 1
+    lead_now = enable & (n.role == ROLE_LEADER)
+    hb_fire = lead_now & (he >= cfg.heartbeat_tick)
+    n = n.replace(heartbeat_elapsed=torch.where(
+        lead_now, torch.where(hb_fire, 0, he), n.heartbeat_elapsed))
+    n, ob = bcast_heartbeat(cfg, spec, n, ob, _ro_last_ctx(n), hb_fire)
+    return n, ob, fire
+
+
+# ---------------------------------------------------------------------------
 # apply cycle and the round
 # ---------------------------------------------------------------------------
 
 
 def apply_round(cfg: RaftConfig, spec: Spec, n: NodeState, ob: Outbox):
-    """Apply up to Spec.A committed normal entries into the hash chain, then
-    compact the ring at the applied cursor when it is nearly full
-    (raft.go:1623-1700 with entry_classes=("normal",))."""
+    """Apply up to Spec.A committed entries: conf changes take effect
+    (raft.go:1623-1700), the hash chain advances, auto-leave fires
+    (raft.go:554-570), and the ring compacts at the applied cursor when it
+    is nearly full. ``entry_classes`` without "conf_change" drops the
+    conf-change block, as in the JAX program."""
+    handle_cc = cfg.entry_classes is None or "conf_change" in cfg.entry_classes
     for _ in range(spec.A):
         idx = n.applied + 1
         can = idx <= n.commit
         s = logops.slot(spec, idx)
         e_term = logops.ring_read(n.log_term, s)
         e_data = logops.ring_read(n.log_data, s)
+        if handle_cc:
+            is_cc = can & (logops.ring_read(n.log_type, s) == ENTRY_CONF_CHANGE)
+            n, ob = ccmod.apply_conf_change(cfg, spec, n, ob, e_data, is_cc)
         n = n.replace(
             applied=torch.where(can, idx, n.applied),
             applied_hash=torch.where(
@@ -784,6 +1151,20 @@ def apply_round(cfg: RaftConfig, spec: Spec, n: NodeState, ob: Outbox):
                 can & (n.role == ROLE_LEADER),
                 torch.clamp(n.uncommitted_size - 1, min=0), n.uncommitted_size),
         )
+
+    if handle_cc:
+        # auto-leave of a joint config (advance(), raft.go:554-570): the
+        # leave entry is appended, not broadcast
+        al = ((n.role == ROLE_LEADER) & n.auto_leave & is_joint(n)
+              & (n.applied >= n.pending_conf_index))
+        zE = torch.zeros_like(n.log_term[:, :spec.E])
+        first = torch.arange(spec.E, device=zE.device).view(1, -1, 1) == 0
+        leave_data = torch.where(first, ccmod.encode_leave_joint(), zE)
+        leave_type = torch.where(first, ENTRY_CONF_CHANGE, zE)
+        n, acc = append_entries_state(cfg, spec, n, _full(1, n.term), leave_data,
+                                      leave_type, al, count_quota=False)
+        n = n.replace(pending_conf_index=torch.where(al & acc, n.last_index,
+                                                     n.pending_conf_index))
 
     occ = n.last_index - n.snap_index
     do_c = (occ > spec.L - 2 * spec.E) & (n.applied > n.snap_index)
@@ -799,12 +1180,14 @@ def apply_round(cfg: RaftConfig, spec: Spec, n: NodeState, ob: Outbox):
 
 def compact_inbox(spec: Spec, flat: Msg, bound: int) -> Msg:
     """A node's inbox slots [S, N, (E,) C] -> its first ``bound`` nonempty
-    slots in order (later messages drop); unchanged when bound >= S."""
+    slots in order (later messages drop); unchanged when bound >= S. On a
+    CUDA tensor this is the compaction kernel (int32 output), on a CPU
+    tensor its plain form."""
     S = flat.type.shape[0]
     B = min(bound, S)
     if B >= S:
         return flat
-    return compact_slots(flat, B)
+    return compact_inbox_slots(flat.map(lambda _, x: x.contiguous()), B)
 
 
 def _flush_deferred(cfg, spec, n: NodeState, ob: Outbox):
@@ -827,15 +1210,19 @@ def _flush_deferred(cfg, spec, n: NodeState, ob: Outbox):
 
 
 def node_round(cfg: RaftConfig, spec: Spec, n: NodeState, slots: Msg,
-               prop_len, prop_data, prop_type, do_hup):
-    """One lockstep round for a batch of nodes: [hup, inbox slots..., prop]
-    messages, the deferred flush, the coalesced commit refresh, then apply.
-    ``slots`` holds the inbox as delivered, leaves [S, N, (E,) C] (already
-    compacted when cfg.compact_wire). Under cfg.sparse_outbox the slot
-    loop's handlers only record PendingWire intents (the JAX scan carries
-    just the state and the PendingWire); the round raises if one wrote the
-    outbox slots, counts or sent commits. Returns (state, outbox)."""
+               prop_len, prop_data, prop_type, ri_ctx, do_hup, do_tick):
+    """One lockstep round for a batch of nodes: tick, then the [hup, inbox
+    slots..., prop, read-index] messages, the deferred flush, the coalesced
+    commit refresh, then apply. ``slots`` holds the inbox as delivered,
+    leaves [S, N, (E,) C] (already compacted when cfg.compact_wire). Under
+    cfg.sparse_outbox the slot loop's handlers only record PendingWire
+    intents (the JAX scan carries just the state and the PendingWire); the
+    round raises if one wrote the outbox slots, counts or sent commits.
+    Returns (state, outbox)."""
     ob = empty_outbox(spec, n.term.shape, n.term.device, deferred=cfg.deferred_emit)
+    if "tick" in cfg.local_steps:
+        n, ob, fire = tick_timers(cfg, spec, n, ob, do_tick)
+        do_hup = do_hup | fire
     commit0 = n.commit
 
     if "hup" in cfg.local_steps:
@@ -861,6 +1248,11 @@ def node_round(cfg: RaftConfig, spec: Spec, n: NodeState, slots: Msg,
                             ent_len=prop_len, ent_data=prop_data,
                             ent_type=prop_type)
         n, ob = process_message(cfg, spec, n, ob, prop_msg)
+    if "read_index" in cfg.local_steps:
+        ri_msg = make_msg(spec, n.term, frm=n.nid,
+                          type=torch.where(ri_ctx != 0, MSG_READ_INDEX, MSG_NONE),
+                          context=ri_ctx)
+        n, ob = process_message(cfg, spec, n, ob, ri_msg)
 
     if cfg.deferred_emit:
         n, ob = _flush_deferred(cfg, spec, n, ob)

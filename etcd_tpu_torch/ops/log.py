@@ -29,10 +29,13 @@ def ring_read(ring: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 
 def roll_left(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """Per node ``roll(a, -k)`` along the feature axis: a [N, F, C], k [N, C]."""
+    """Per node ``roll(a, -k)`` along the feature axis: a [N, F, ..., C],
+    k [N, C]."""
     F = a.shape[1]
-    offs = torch.arange(F, dtype=torch.int32, device=a.device).view(1, F, 1)
-    return torch.gather(a, 1, ((offs + k.unsqueeze(1)) % F).to(torch.int64))
+    lead = (1,) * (a.dim() - 3)
+    offs = torch.arange(F, dtype=torch.int32, device=a.device).view((1, F) + lead + (1,))
+    k = k.view(k.shape[:1] + (1,) + lead + k.shape[1:])
+    return torch.gather(a, 1, ((offs + k) % F).to(torch.int64).expand(a.shape))
 
 
 def first_index(n: NodeState) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """The fixed-schedule round driver (etcd_tpu/parallel/mesh.py
-build_scan_rounds) for one device.
+build_scan_rounds) for one device, and the CUDA-graph step it runs on.
 
 The JAX driver scans ``rounds`` lockstep rounds on the device in one
 program, with no host round trip between them. Its counterpart here, on a
@@ -18,10 +18,63 @@ import collections
 import torch
 
 from etcd_tpu_torch.kernels import LAUNCHES
-from etcd_tpu_torch.kernels import compact_wire
 from etcd_tpu_torch.models.engine import build_round
 from etcd_tpu_torch.types import Spec
 from etcd_tpu_torch.utils.config import RaftConfig
+from etcd_tpu_torch.utils.tree import tree_clone, tree_load
+
+
+class CapturedStep:
+    """``step(carry) -> carry`` on a CUDA device as one CUDA graph over a
+    static carry (a tensor dataclass, or a tuple of them and of tensors).
+
+    The first call runs ``warmup`` (default: ``step``) once eagerly on a side
+    stream, as CUDA graphs want (kernels load and allocator pools come up
+    outside capture), then captures ``step``; every call copies the given
+    carry into the static one (skipping tensors that already are it),
+    replays, and returns the static carry, which the next call overwrites.
+    ``pool`` lets steps that never run at once share one memory pool.
+    ``captured`` counts the kernel launches the wrappers recorded
+    (``kernels.LAUNCHES`` counts them once, at capture, where they do not
+    run); each of the ``replays`` runs every one of them once."""
+
+    def __init__(self, step, warmup=None, pool=None):
+        self.step, self.warmup, self.pool = step, warmup or step, pool
+        self.graph = self.carry = None
+        self.captured: collections.Counter = collections.Counter()
+        self.replays = 0
+
+    def __call__(self, carry):
+        if self.graph is None:
+            self._capture(carry)
+        else:
+            tree_load(self.carry, carry)
+        self.graph.replay()
+        self.replays += 1
+        return self.carry
+
+    def release(self) -> None:
+        """Drop the graph, its memory pool and the carry (the last result
+        stays valid for whoever holds it); the counts stay. The next call
+        captures anew."""
+        self.graph = self.carry = None
+        if torch.cuda.is_initialized():
+            torch.cuda.empty_cache()
+
+    def _capture(self, carry) -> None:
+        self.carry = tree_clone(carry)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self.warmup(self.carry)
+        torch.cuda.current_stream().wait_stream(side)
+        tree_load(self.carry, carry)     # the warm-up may write into the carry
+        before = collections.Counter(LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=self.pool):
+            tree_load(self.carry, self.step(self.carry))
+        self.captured = collections.Counter(LAUNCHES)
+        self.captured.subtract(before)
 
 
 class ScanRounds:
@@ -30,84 +83,43 @@ class ScanRounds:
 
     On a CUDA device the result IS the graph's static carry: the next call
     overwrites it, so a caller that keeps a result across calls clones it.
-    ``captured`` counts the kernel launches each wrapper recorded into the
-    graph (``kernels.LAUNCHES`` counts them once, at capture, where they
-    are recorded and not run); ``replays`` counts the graph's replays, each
-    of which runs every recorded launch once."""
+    ``captured`` and ``replays`` are the graph's (see CapturedStep); its
+    eager warm-up is one round."""
 
     def __init__(self, cfg: RaftConfig, spec: Spec, rounds: int):
         if rounds < 1:
             raise ValueError(f"rounds must be >= 1, got {rounds}")
         self.cfg, self.rounds = cfg, rounds
         self.round_fn = build_round(cfg, spec)
-        self.graph = None
-        self.state = self.inbox = self.args = None
-        self.captured: collections.Counter = collections.Counter()
-        self.replays = 0
+        self.graph = CapturedStep(self._run, warmup=self._one)
+
+    def _one(self, carry):
+        return self.round_fn(*carry)
+
+    def _run(self, carry):
+        state, inbox, *args = carry
+        for _ in range(self.rounds):
+            state, inbox = self.round_fn(state, inbox, *args)
+        return (state, inbox, *args)
 
     def __call__(self, state, inbox, *args):
         dev = state.rng_key.device
         if dev.type == "cpu":
-            for _ in range(self.rounds):
-                state, inbox = self.round_fn(state, inbox, *args)
-            return state, inbox
+            return tuple(self._run((state, inbox, *args))[:2])
         if dev.type != "cuda":
             raise ValueError(f"build_scan_rounds: no driver for device {dev}")
-        if self.graph is None:
-            self._capture(state, inbox, args)
-        else:
-            _load(self.state, state)
-            _load(self.inbox, inbox)
-            for dst, src in zip(self.args, args):
-                if src is not dst:
-                    dst.copy_(src)
-        self.graph.replay()
-        self.replays += 1
-        return self.state, self.inbox
+        return tuple(self.graph((state, inbox, *args))[:2])
+
+    @property
+    def captured(self) -> collections.Counter:
+        return self.graph.captured
+
+    @property
+    def replays(self) -> int:
+        return self.graph.replays
 
     def release(self) -> None:
-        """Drop the graph, its memory pool and the carry (the last result
-        stays valid for whoever holds it); the counts stay. The next call
-        captures anew."""
-        self.graph = None
-        self.state = self.inbox = self.args = None
-        if torch.cuda.is_initialized():
-            torch.cuda.empty_cache()
-
-    def _capture(self, state, inbox, args):
-        self.state = state.map(lambda _, x: x.clone())
-        self.inbox = inbox.map(lambda _, x: x.clone())
-        self.args = tuple(a.clone() for a in args)
-        if self.cfg.compact_wire:
-            compact_wire._library()       # build and load before capture
-        # one eager round on a side stream first, as CUDA graphs want:
-        # lazily loaded kernels and allocator pools come up outside capture
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self.round_fn(self.state, self.inbox, *self.args)
-        torch.cuda.current_stream().wait_stream(side)
-        _load(self.state, state)      # fleet_chunks > 1 rounds write in place
-        _load(self.inbox, inbox)
-        before = collections.Counter(LAUNCHES)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            st, ib = self.state, self.inbox
-            for _ in range(self.rounds):
-                st, ib = self.round_fn(st, ib, *self.args)
-            _load(self.state, st)
-            _load(self.inbox, ib)
-        self.captured = collections.Counter(LAUNCHES)
-        self.captured.subtract(before)
-
-
-def _load(dst, src) -> None:
-    """Copy every leaf of ``src`` into the same leaf of ``dst`` (skipping
-    leaves that already are those tensors)."""
-    for name, x in src.items():
-        d = getattr(dst, name)
-        if x is not d:
-            d.copy_(x)
+        self.graph.release()
 
 
 def build_scan_rounds(cfg: RaftConfig, spec: Spec, mesh=None,

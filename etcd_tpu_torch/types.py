@@ -40,14 +40,6 @@ MSG_SNAP_STATUS = 16
 MSG_HUP = 17
 NUM_MSG_TYPES = 18
 
-# The message classes this port handles: the election cascade started by a
-# MsgHup plus steady replication. No round ticks, so heartbeats, check-quorum
-# steps, snapshots, reads and transfers never occur on its path.
-PORTED_CLASSES = (
-    MSG_HUP, MSG_PRE_VOTE, MSG_PRE_VOTE_RESP, MSG_VOTE, MSG_VOTE_RESP,
-    MSG_APP, MSG_APP_RESP, MSG_PROP,
-)
-
 ENTRY_NORMAL = 0
 ENTRY_CONF_CHANGE = 1
 ENTRY_CONF_CHANGE_V2 = 2
@@ -64,9 +56,12 @@ CAMPAIGN_NONE = 0
 CAMPAIGN_TRANSFER = 1
 CAMPAIGN_FORCE = 2
 
-# conf-change data word bit that marks a leave-joint change
-# (etcd_tpu/models/confchange.py _LEAVE)
-CC_LEAVE_JOINT = 1 << 20
+# conf-change ops, encoded into a conf-change entry's data word
+# (models/confchange.py; raft.proto ConfChangeType)
+CC_ADD_NODE = 0
+CC_REMOVE_NODE = 1
+CC_UPDATE_NODE = 2
+CC_ADD_LEARNER = 3
 
 
 @dataclasses.dataclass(frozen=True)

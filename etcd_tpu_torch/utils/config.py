@@ -2,8 +2,7 @@
 
 Every field and every ``__post_init__`` check of the JAX config, so a config
 built for one package means the same in the other. The comments on each
-field live in the JAX module; what the port does not implement yet is
-refused by ``models.engine.build_round``, not here.
+field live in the JAX module.
 """
 from __future__ import annotations
 

@@ -30,3 +30,18 @@ def env_bool(prog: str, name: str, default: str, environ=None) -> bool:
     if raw not in ("0", "1"):
         knob_error(prog, f"{name}={raw!r} is not 0 or 1")
     return raw == "1"
+
+
+def env_float(prog: str, name: str, default: str, lo: float | None = None,
+              hi: float | None = None, environ=None) -> float:
+    raw = (os.environ if environ is None else environ).get(name, default)
+    try:
+        v = float(raw)
+    except ValueError:
+        knob_error(prog, f"{name}={raw!r} is not a number")
+    if v != v:  # NaN compares False against any range bound
+        knob_error(prog, f"{name}={raw!r} is not a number")
+    if (lo is not None and v < lo) or (hi is not None and v > hi):
+        span = f"[{lo}, {hi}]" if hi is not None else f">= {lo}"
+        knob_error(prog, f"{name}={raw} outside {span}")
+    return v

@@ -1,9 +1,10 @@
 """JAX's threefry2x32 PRNG, bit-exact, on int64 tensors.
 
 Reproduces ``jax.random`` under jax 0.9's defaults (impl ``threefry2x32``,
-``jax_threefry_partitionable=True``) for the draws the Raft state makes:
-``PRNGKey``, ``fold_in``, ``split`` into two and ``randint`` of one int32
-in [lo, hi). A key is a pair of uint32 words. torch's uint32 coverage is
+``jax_threefry_partitionable=True``) for the draws the Raft state and the
+chaos harness make: ``PRNGKey``, ``fold_in``, ``split``, ``randint`` of one
+int32 in [lo, hi), and ``bits``, ``uniform`` and ``bernoulli`` over a
+shape. A key is a pair of uint32 words. torch's uint32 coverage is
 partial, so every add, shift and modulo is done on int64 tensors in
 [0, 2**32) and masked back to 32 bits; the node state stores a key as int32
 bit patterns (``stored``), the same bytes as the JAX package's uint32 key.
@@ -15,9 +16,14 @@ jax/_src/random.py _randint):
     every 4 rounds.
   * PRNGKey(s) = (s >> 32, s & 0xffffffff) = (0, s) for 32-bit seeds.
   * fold_in(k, d) = threefry(k, (0, d)).
-  * split(k) = [threefry(k, (0, 0)), threefry(k, (0, 1))]: the
-    partitionable split hashes the 64-bit iota (hi, lo) of each subkey.
-  * random 32-bit word of a scalar draw = xor of threefry(k, (0, 0)).
+  * split(k, n)[i] = threefry(k, (0, i)): the partitionable split hashes
+    the 64-bit iota (hi, lo) of each subkey.
+  * bits(k, shape) = xor of the pair threefry(k, (0, i)) for the row-major
+    flat index i of each element (the 64-bit iota of the shape; its high
+    word is 0 below 2**32 elements); a scalar draw is bits(k, ()).
+  * uniform(k, shape) in [0, 1), float32 = (bits >> 9) * 2**-23: jax sets
+    the 23 mantissa bits of 1.0 and subtracts 1.0, which is exact.
+  * bernoulli(k, p, shape) = uniform(k, shape) < p, p a float32.
   * randint(k, (), lo, hi): k1, k2 = split(k); two words from k1 and k2;
     offset = ((w1 % span) * (2**32 % span) + w2 % span) % span.
 """
@@ -57,23 +63,64 @@ def prng_key(seed: int, device=None) -> torch.Tensor:
     return torch.tensor([0, seed & M32], dtype=torch.int64, device=device)
 
 
-def fold_in(key: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``: key [..., 2, C'] (the pair on axis -2 when
     batched, or a bare [2]), data an integer tensor broadcasting against one
-    word; negative int32 data wraps to uint32 as in jax."""
+    word, or a Python int (made on the key's device, no host copy);
+    negative int32 data wraps to uint32 as in jax."""
     k0, k1 = _words(key)
+    if not isinstance(data, torch.Tensor):
+        data = torch.full((), data & M32, dtype=torch.int64, device=key.device)
     d = data.to(torch.int64) & M32
     y0, y1 = threefry2x32(k0, k1, torch.zeros_like(d), d)
     return _pair(y0, y1)
 
 
+def split(key: torch.Tensor, n: int) -> list:
+    """``jax.random.split(key, n)`` as a list of ``n`` keys shaped like
+    ``key``."""
+    k0, k1 = _words(key)
+    cnt = torch.arange(n, dtype=torch.int64, device=key.device)
+    cnt = cnt.view((n,) + (1,) * k0.dim())
+    y0, y1 = threefry2x32(k0, k1, torch.zeros_like(cnt), cnt)
+    return [_pair(y0[i], y1[i]) for i in range(n)]
+
+
 def split2(key: torch.Tensor):
     """``jax.random.split(key)`` into (new_key, subkey)."""
+    return tuple(split(key, 2))
+
+
+def bits(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` (uint32) for one bare key [2]: int64
+    tensor of uint32 values."""
     k0, k1 = _words(key)
-    cnt = torch.arange(2, dtype=torch.int64, device=key.device)
-    cnt = cnt.view((2,) + (1,) * k0.dim())
-    y0, y1 = threefry2x32(k0, k1, torch.zeros_like(cnt), cnt)
-    return _pair(y0[0], y1[0]), _pair(y0[1], y1[1])
+    numel = 1
+    for d in shape:
+        numel *= d
+    if numel >= 2**32:
+        raise ValueError("bits: a draw of 2**32 or more words needs the high "
+                         "count word, which this port does not form")
+    lo = torch.arange(numel, dtype=torch.int64, device=key.device).view(tuple(shape))
+    y0, y1 = threefry2x32(k0, k1, torch.zeros((), dtype=torch.int64,
+                                              device=key.device), lo)
+    return y0 ^ y1
+
+
+def uniform(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` in [0, 1), float32."""
+    return (bits(key, shape) >> 9).to(torch.float32) * (2.0 ** -23)
+
+
+def bernoulli(key: torch.Tensor, p, shape) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: bool. ``p`` is a float32
+    tensor or a Python float (rounded to float32, as jax converts it); the
+    comparison is in float32, as in jax."""
+    if not isinstance(p, torch.Tensor):
+        p = torch.full((), p, dtype=torch.float32, device=key.device)
+    if p.dtype != torch.float32:
+        raise TypeError(f"bernoulli: p must be float32, got {p.dtype}")
+    return uniform(key, shape) < p
 
 
 def randint(key: torch.Tensor, lo: int, hi: int) -> torch.Tensor:

@@ -122,7 +122,8 @@ def test_dense_metered_round_equals_jax(start):
     and local step (bench.py's RaftConfig), 8 rounds with two of drops.
     Slow: the JAX program takes about 90 s to compile on one CPU core."""
     s = start
-    jcfg = dataclasses.replace(jax_config(s["cfg"]), local_steps=JRaftConfig().local_steps)
+    jcfg = dataclasses.replace(jax_config(s["cfg"]), local_steps=JRaftConfig().local_steps,
+                               message_classes=None, entry_classes=None)
     jmet = jax.jit(jmetrics.build_metered_round(jcfg, s["jspec"]))
     tmet = tmetrics.build_metered_round(s["cfg"], s["spec"])
     js, ji = jax_tree(jstate.NodeState, to_numpy(s["dense"])), s["jinbox"]

@@ -1,7 +1,7 @@
 """The port stands alone: no jax, flax or etcd_tpu import anywhere in it or
 in chip_smoke.py, every module importable with those blocked, a CUDA
-default that raises where there is no card, and a refusal of the
-configurations it does not implement yet."""
+default that raises where there is no card, the round configurations it
+builds, and a refusal of what it does not implement yet."""
 import ast
 import dataclasses
 import pathlib
@@ -45,9 +45,11 @@ def test_no_forbidden_imports_in_the_package():
 
 def test_imports_and_runs_a_round_with_jax_blocked():
     """In a fresh interpreter where importing jax, flax or etcd_tpu fails,
-    every module of the port (the bench entry point included) imports, and
-    one CPU round of the settle program and one of bench.py's packed,
-    deferred and sparse steady program run at C=2."""
+    every module of the port (the bench and chaos entry points, the chaos
+    harness and the Cluster included) imports, and on the CPU one round of
+    the settle program, one of bench.py's packed, deferred and sparse
+    steady program and one of the full program (chaos_run's config, every
+    local step) run at C=2, and a 3-member Cluster elects a leader."""
     code = "\n".join([
         "import sys",
         "for m in ('jax', 'jaxlib', 'flax', 'etcd_tpu'):",
@@ -73,6 +75,17 @@ def test_imports_and_runs_a_round_with_jax_blocked():
         "_, steady = bench.configs(bench.read_knobs({'BENCH_C': '2'}), spec)",
         "st, ib = build_round(steady, spec)(pack_fleet(spec, st), ib,",
         "                                   *drive.steady_inputs(spec, 2, 'cpu'))",
+        "import etcd_tpu_torch.chaos_run, etcd_tpu_torch.harness.chaos",
+        "from etcd_tpu_torch.harness.cluster import Cluster",
+        "from etcd_tpu_torch.utils.config import RaftConfig",
+        "full = RaftConfig(pre_vote=True, check_quorum=True, inbox_bound=4,",
+        "                  coalesce_commit_refresh=True, wire_int16=True)",
+        "st = init_fleet(spec, 2, device='cpu'); ib = empty_inbox(spec, 2, True, device='cpu')",
+        "st, ib = build_round(full, spec)(st, ib, z2, zp, zp, z2 + 1, hup, ~no,",
+        "                                 torch.ones((5, 5, 2), dtype=torch.bool))",
+        "assert int((ib.type != 0).sum()) > 0, ib.type",
+        "cl = Cluster(3, device='cpu'); cl.campaign(0); cl.stabilize()",
+        "assert cl.leader() == 0, cl.roles()",
         "assert not any(m in sys.modules and sys.modules[m] is not None",
         "               for m in ('jax', 'flax', 'etcd_tpu'))",
         "print('ok')",
@@ -111,10 +124,21 @@ UNPORTED = {
 
 @pytest.mark.parametrize("what", sorted(UNPORTED))
 def test_build_round_refuses_what_the_slice_does_not_implement(what):
+    """These four parts of a round were refused until the general round was
+    ported; build_round now builds each and runs it. What the port still
+    refuses is the chaos harness's crash, membership and plane tiers
+    (tests/test_torch_chaos.py)."""
     spec = drive.bench_spec()
-    cfg = dataclasses.replace(drive.settle_config(spec), **UNPORTED[what])
-    with pytest.raises(NotImplementedError, match=what):
-        teng.build_round(cfg, spec)
+    full = dict(message_classes=None, entry_classes=None)
+    cfg = dataclasses.replace(drive.settle_config(spec), **{**full, **UNPORTED[what]})
+    st = teng.init_fleet(spec, 2, device="cpu")
+    ib = teng.empty_inbox(spec, 2, True, cfg.inbox_bound, device="cpu")
+    z2 = torch.zeros((5, 2), dtype=torch.int32)
+    zp = torch.zeros((5, 1, 2), dtype=torch.int32)
+    on = torch.ones((5, 2), dtype=torch.bool)
+    st, ib = teng.build_round(cfg, spec)(st, ib, z2 + 1, zp, zp, z2 + 3, on, on,
+                                         torch.ones((5, 5, 2), dtype=torch.bool))
+    assert int((st.role != 0).sum()) > 0         # campaigns started
 
 
 @pytest.mark.parametrize("plane", ["telemetry", "blackbox"])

@@ -25,7 +25,6 @@ from etcd_tpu.utils.config import RaftConfig as JRaftConfig
 from etcd_tpu_torch import drive
 from etcd_tpu_torch.convert import to_numpy
 from etcd_tpu_torch.models import engine as teng
-from etcd_tpu_torch.types import PORTED_CLASSES
 
 C = 8
 STEADY = 16
@@ -124,7 +123,7 @@ def test_state_and_wire_equal_every_round(traj, phase):
 def test_jax_wire_carries_only_ported_classes(traj):
     for phase, _, ji, _, _ in traj:
         types = set(np.unique(ji["type"]).tolist()) - {0}
-        assert types <= set(PORTED_CLASSES), (phase, types)
+        assert types <= set(drive.SETTLE_CLASSES), (phase, types)
 
 
 def test_trajectory_covers_the_slice(traj):
@@ -136,7 +135,7 @@ def test_trajectory_covers_the_slice(traj):
     for _, _, ji, _, _ in traj:
         seen |= set(np.unique(ji["type"]).tolist())
     # proposals start at the leader, so MsgProp is never forwarded on the wire
-    assert set(PORTED_CLASSES) - {MSG_PROP} <= seen
+    assert set(drive.SETTLE_CLASSES) - {MSG_PROP} <= seen
     drop = [r[1] for r in traj if r[0] == "drop"]
     assert any((s["pr_state"][0] == 0).any() for s in drop)      # re-probe
     steady_end = [r for r in traj if r[0] == "steady"][-1][1]
