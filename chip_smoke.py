@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (etcd_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--phases 1,2,...]
 
 Phases, each printing its lines:
   0. the card (torch and nvidia-smi's name and power limit);
@@ -18,11 +18,13 @@ Phases, each printing its lines:
      (packed state, deferred emission, sparse outbox) for 16 rounds from
      the packed settled fleet; and on the card that program's CUDA graph
      (parallel/mesh.py build_scan_rounds), two replays of 16 rounds, against
-     the same 32 rounds run eagerly; then chaos_run's program (harness/chaos.py
-     run_chaos, 2 fleet chunks) for a fault epoch and a heal epoch of 10
-     rounds, each round a replay of its CUDA graph on the card, against the
-     CPU on the report and every leaf, with the compact_inbox launches
-     counted (rounds x chunks);
+     the same 32 rounds run eagerly; then chaos_run's programs (harness/chaos.py
+     run_chaos, 2 fleet chunks on the card) for the network tier, the crash
+     tier, the persist-nothing crash tier (which must trip lost_commit) and
+     the membership and crash tiers (int32 wire), each round a replay of its
+     CUDA graph on the card, against the CPU (worker processes, one chunk)
+     on the report and every leaf, with the compact_inbox launches counted
+     (rounds x chunks);
   3. the dense eager path (immediate emission): init_fleet, settle_leaders and 16
      steady_rounds at C = 262,144 groups with the kernel launch count read
      around that run, the commit advance and hash-chain checks,
@@ -32,27 +34,48 @@ Phases, each printing its lines:
      CUDA graph, the commit check, the metered pass), printing its JSON line,
      with the launches counted around it (the graph's recorded launches
      times its replays, plus the eager ones) and its peak memory;
-  5. the same steady program run eagerly for comparison at full width, the
-     compaction kernel timed on the outbox of its last round (the main
-     path's own input) against its plain version and its bound, a device
-     profile of two eager rounds (launches per round, device busy time,
-     idle share, device time under named functions), and of one replay of
-     a fresh graph of 16 rounds, with that graph's peak memory;
-  6. the chaos path at full width: etcd_tpu_torch.chaos_run at
-     CHAOS_C = 1,048,576, CHAOS_ROUNDS = 75 (a fault epoch of 50 rounds, a
+  5. the same steady program run eagerly for comparison on 262,144 groups of
+     that fleet, the compaction kernel timed on the outbox of its last round
+     (the main path's own input) against its plain version and its bound, a
+     device profile of two eager rounds (launches per round, device busy
+     time, idle share, device time under named functions), and of one replay
+     of a fresh graph of 16 rounds, with that graph's peak memory;
+  6. the chaos path: etcd_tpu_torch.chaos_run's network tier at
+     CHAOS_C = 262,144, CHAOS_ROUNDS = 75 (a fault epoch of 50 rounds, a
      heal epoch of 25, and the WaitHealth heal epochs it needs) and its
      other defaults (drop 0.02, delay 0.05, partition 0.1, L = 16, bound 4,
-     int16 wire, 8 fleet chunks), its JSON line and verdicts (safe,
-     recovered, lively), wall time, launches and peak memory; then a device
-     profile of 2 eager fault rounds on one chunk's 131,072 groups (device
-     busy time, idle share, launches per round, device time under
-     tick_timers, process_message, apply_round, the fault draws,
+     int16 wire), its JSON line and verdicts (safe, recovered, lively), wall
+     time, launches and peak memory; then a device profile of 2 eager fault
+     rounds (device busy time, idle share, launches per round, device time
+     under tick_timers, process_message, apply_round, the fault draws,
      _merge_delayed, check_invariants and the kernel); ``--profile`` adds
-     one of the graph replay of 2 fault rounds at full width.
-Then a line with the kernels' JSON record (the one kernel, once per site),
-nvidia-smi's name and power limit,
-and last {"ok": true, "device": {...}}. Any failure exits non-zero before the
-last line. Needs a CUDA device; the port imports no JAX.
+     one of the graph replay of 2 fault rounds;
+  7a. the crash tier at its documented size: CHAOS_C = 262,144,
+     CHAOS_CRASH = 0.01, 75 rounds, its JSON line, verdicts, crash counters,
+     wall time, launches and peak memory, and the kernel timed on the
+     compact_inbox input of an eager fault round;
+  7b. the membership and crash tiers (CHAOS_MEMBER = 0.05, CHAOS_CRASH =
+     0.005, CHAOS_SNAP_BOOST = 200, CHAOS_MEMBER_BOOST = 4, int32 wire) at
+     C = 524,288 in 4 chunks, one fault and one heal epoch of 25 rounds, the
+     same lines plus the membership counters, the kernel timed on an inbox
+     carrying conf-change words, and a device profile of 2 eager fault
+     rounds on one chunk (pre_round, crash_restart_fleet,
+     check_recovery_invariants, inject_member); then the same knobs at
+     C = 65,536 for 75 rounds, the report held key for key to the
+     reference's committed one (CHAOS_MEMBER_65K_PIN.json).
+Then a line with the kernels' JSON record (the one kernel: at its carry
+site, and at compact_inbox on the network, crash and membership paths),
+nvidia-smi's name and power limit, and last {"ok": true, "device": {...}}.
+Any failure exits non-zero before the last line. A chaos path's verdicts
+(safe, recovered, lively) are all required; one that is false is printed
+at once and fails the run after the kernels' line, so that every phase
+still prints its measurements. The one exception is phase 7b's
+`recovered`, and only while the 65,536-group report equals the
+reference's: the reference itself leaves groups without a leader under
+this mix (ROADMAP.md section 3), so there the port is held to the
+reference's report, not to recovery. ``--phases`` runs a subset
+(phase 5 needs 4), without those last lines. Needs a CUDA device; the port
+imports no JAX.
 """
 from __future__ import annotations
 
@@ -345,53 +368,112 @@ def graph_launches(counted, graphs):
     return dict(real)
 
 
-def phase_chaos_small(C=64, chunks=2):
-    """chaos_run's program at C = ``C`` in ``chunks`` fleet chunks: one fault
-    epoch and one heal epoch of 10 rounds (plus the WaitHealth epochs it
-    needs), card (each round a replay of its CUDA graph) against CPU on the
-    report and every leaf of the state, the inbox, the held buffer and the
-    key; on the card the kernel runs at the compact_inbox site once per
-    round and chunk."""
+def tree_diff(a, b, name: str) -> list:
+    """The leaves (by path) where two equal-structured tensor dataclasses,
+    nested or None, differ in dtype, shape or value."""
+    import torch
+
+    if a is None or b is None:
+        return [] if a is b else [name]
+    if isinstance(a, torch.Tensor):
+        return [] if a.dtype == b.dtype and torch_equal(a, b) else [name]
+    return [d for k, v in a.items() for d in tree_diff(v, getattr(b, k), f"{name}.{k}")]
+
+
+# phase 2's chaos runs at C = 64 in 2 fleet chunks: name, chaos_run knobs,
+# rounds, fault epoch, heal epoch
+SMALL_CHAOS = (
+    ("network", {}, 20, 10, 10),
+    ("crash", {"CHAOS_CRASH": "0.02"}, 20, 10, 10),
+    # the broken persist-nothing model on the JAX test's mix
+    # (tests/test_recovery_crash.py:65); it must trip the checker
+    ("persist-nothing", {"CHAOS_CRASH": "0.12", "CHAOS_DOWN": "2",
+                         "CHAOS_DURABILITY": "none", "CHAOS_DROP": "0",
+                         "CHAOS_PART": "0", "CHAOS_DELAY": "0.08"}, 25, 25, 10),
+    ("member+crash", {"CHAOS_MEMBER": "0.05", "CHAOS_CRASH": "0.005",
+                      "CHAOS_SNAP_BOOST": "200", "CHAOS_MEMBER_BOOST": "4"}, 20, 10, 10),
+)
+
+
+def small_chaos_run(env, rounds, epoch_len, heal_len, C, chunks, dev):
+    """One of SMALL_CHAOS on ``dev``: (report, end dict without the graphs,
+    kernel launches, CUDA graphs). The CPU runs the fleet in one chunk: its
+    eager rounds cost per operation, and chunks compute the same values."""
     import torch
 
     from etcd_tpu_torch import chaos_run
     from etcd_tpu_torch.harness.chaos import run_chaos
     from etcd_tpu_torch.kernels import LAUNCHES, reset_launches
 
-    k = chaos_run.read_knobs({"CHAOS_C": str(C), "CHAOS_CHUNKS": str(chunks)})
+    if dev == "cpu":
+        torch.set_num_threads(2)
+    k = chaos_run.read_knobs({"CHAOS_C": str(C), "CHAOS_CHUNKS": str(chunks), **env})
     spec, cfg = chaos_run.spec_and_config(k)
-    reps, ends, launches = {}, {}, {}
-    for dev in ("cuda", "cpu"):
-        reset_launches()
-        ends[dev] = {}
-        reps[dev] = run_chaos(spec, cfg, C=C, rounds=20, epoch_len=10, heal_len=10,
-                              seed=k["seed"], drop_p=k["drop_p"], delay_p=k["delay_p"],
-                              partition_p=k["partition_p"], device=dev, end=ends[dev])
-        launches[dev] = graph_launches(LAUNCHES, ends[dev]["graphs"])
-    torch.cuda.synchronize()
-    if reps["cuda"] != reps["cpu"]:
-        raise AssertionError(f"chaos report: card {reps['cuda']} != CPU {reps['cpu']}")
-    a, b = ends["cuda"], ends["cpu"]
-    bad = (leaves_equal(a["state"], b["state"]) + leaves_equal(a["inbox"], b["inbox"])
-           + leaves_equal(a["held"].msgs, b["held"].msgs)
-           + ([] if torch_equal(a["held"].idx, b["held"].idx) else ["held.idx"])
-           + ([] if torch_equal(a["key"], b["key"]) else ["key"]))
-    if bad:
-        raise AssertionError(f"chaos run at C={C}: card != CPU on {bad}")
-    rounds = reps["cuda"]["rounds"]
-    graphs = a["graphs"]
-    replayed = sum(g.captured["compact_inbox"] * g.replays for g in graphs)
-    warm = len(graphs) * chunks
-    if replayed != rounds * chunks or launches["cuda"].get("compact_inbox") != \
-            rounds * chunks + warm or launches["cpu"]:
-        raise AssertionError(f"compact_inbox launches {launches} over {rounds} rounds "
-                             f"x {chunks} chunks (+ {warm} in the graphs' warm-up "
-                             f"rounds), {replayed} replayed")
-    print(f"phase 2 chaos C={C} in {chunks} chunks: {rounds} rounds as replays of "
-          f"{len(graphs)} CUDA graphs, card (kernel at compact_inbox: rounds x chunks "
-          f"= {replayed} launches replayed, plus {warm} in the graphs' eager warm-up "
-          f"rounds) == CPU (plain) on the report and every state, inbox and "
-          f"held-buffer leaf: {json.dumps(reps['cuda'])}", flush=True)
+    if dev == "cpu":
+        cfg = dataclasses.replace(cfg, fleet_chunks=1)
+    reset_launches()
+    end = {}
+    rep = run_chaos(spec, cfg, C=C, rounds=rounds, epoch_len=epoch_len,
+                    heal_len=heal_len, device=dev, end=end, **chaos_run.fault_kwargs(k))
+    graphs = end.pop("graphs")
+    launches = graph_launches(LAUNCHES, graphs)
+    return rep, end, launches, graphs
+
+
+def _cpu_small_chaos_run(*args):
+    """small_chaos_run on the CPU in a worker process (its result pickled)."""
+    rep, end, launches, _ = small_chaos_run(*args, "cpu")
+    return rep, end, launches
+
+
+def phase_chaos_small(C=64, chunks=2):
+    """chaos_run's programs at C = ``C``, each of SMALL_CHAOS: the card in
+    ``chunks`` fleet chunks (each round a replay of its CUDA graph) against
+    the CPU in one chunk, on the report and every leaf of the state, the
+    inbox, the held buffer, the CrashState and the key; on the card the
+    kernel runs at the compact_inbox site once per round and chunk. The CPU
+    runs go side by side in worker processes while the card runs."""
+    import concurrent.futures
+    import multiprocessing
+
+    import torch
+
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(len(SMALL_CHAOS), mp_context=ctx) as pool:
+        cpu = [pool.submit(_cpu_small_chaos_run, env, rounds, epoch_len, heal_len, C,
+                           chunks)
+               for _, env, rounds, epoch_len, heal_len in SMALL_CHAOS]
+        for (name, env, rounds, epoch_len, heal_len), fut in zip(SMALL_CHAOS, cpu):
+            rep, a, launches, graphs = small_chaos_run(env, rounds, epoch_len, heal_len,
+                                                       C, chunks, "cuda")
+            torch.cuda.synchronize()
+            cpu_rep, b, cpu_launches = fut.result()
+            if rep != cpu_rep:
+                raise AssertionError(f"chaos {name}: card {rep} != CPU {cpu_rep}")
+            bad = [d for leaf in ("state", "inbox", "held", "crash", "key")
+                   for d in tree_diff(a[leaf], b[leaf], leaf)]
+            if bad:
+                raise AssertionError(f"chaos {name} at C={C}: card != CPU on {bad}")
+            done = rep["rounds"]
+            replayed = sum(g.captured["compact_inbox"] * g.replays for g in graphs)
+            warm = len(graphs) * chunks
+            if replayed != done * chunks or launches.get("compact_inbox") != \
+                    done * chunks + warm or cpu_launches:
+                raise AssertionError(f"compact_inbox launches {launches} (CPU "
+                                     f"{cpu_launches}) over {done} rounds x {chunks} "
+                                     f"chunks (+ {warm} in the graphs' warm-up rounds), "
+                                     f"{replayed} replayed")
+            if name == "persist-nothing" and not rep["lost_commit"] > 0:
+                raise AssertionError(f"persist-nothing run did not trip lost_commit: {rep}")
+            wire = "int32" if "CHAOS_MEMBER" in env else "int16"
+            print(f"phase 2 chaos {name} C={C} in {chunks} chunks ({wire} wire, "
+                  f"{time.perf_counter() - t0:.1f}s): {done} rounds as replays of "
+                  f"{len(graphs)} CUDA graphs, card (kernel at compact_inbox: rounds x "
+                  f"chunks = {replayed} launches replayed, plus {warm} in the graphs' "
+                  f"eager warm-up rounds) == CPU (plain, one chunk) on the report and "
+                  f"every state, inbox, held-buffer and CrashState leaf: "
+                  f"{json.dumps(rep)}", flush=True)
 
 
 def phase_full(card, profile=False, groups=FULL_GROUPS // 4):
@@ -490,10 +572,12 @@ def phase_bench(card):
     return res, launches
 
 
-def phase_compare(res, card, rounds=16):
-    """The bench's steady program run eagerly on its fleet, the kernel timed
-    on the outbox of its last round, and device profiles of two eager
-    rounds and one replay of a fresh graph of ``rounds`` rounds."""
+def phase_compare(res, card, rounds=16, groups=FULL_GROUPS // 4):
+    """The bench's steady program run eagerly on the first ``groups`` groups
+    of its fleet (cut from C = 1,048,576 to 262,144 to keep the script's
+    time for the chaos paths), the kernel timed on the outbox of its last
+    round, and device profiles of two eager rounds and one replay of a
+    fresh graph of ``rounds`` rounds."""
     import torch
 
     from etcd_tpu_torch import drive
@@ -503,8 +587,8 @@ def phase_compare(res, card, rounds=16):
 
     spec = drive.bench_spec()
     _, steady = steady_program(spec)
-    C = res.inbox.type.shape[-1]
-    state, inbox = pack_fleet(spec, res.state), res.inbox
+    C = groups
+    state, inbox = pack_fleet(spec, cut_groups(res.state, C)), cut_groups(res.inbox, C)
     res.state = res.inbox = None
     free_card()
     state, inbox = drive.steady_rounds(steady, spec, state, inbox, 1)    # warm
@@ -557,100 +641,240 @@ PROFILED_CHAOS = (("etcd_tpu_torch.models.raft", "tick_timers"),
                   ("etcd_tpu_torch.harness.chaos", "check_invariants"),
                   ("etcd_tpu_torch.models.raft", "compact_inbox_slots"),
                   ("etcd_tpu_torch.utils.prng", "threefry2x32"))
+PROFILED_MEMBER = (("etcd_tpu_torch.harness.chaos", "pre_round"),
+                   ("etcd_tpu_torch.harness.chaos", "crash_restart_fleet"),
+                   ("etcd_tpu_torch.harness.chaos", "check_recovery_invariants"),
+                   ("etcd_tpu_torch.harness.chaos", "inject_member"),
+                   ("etcd_tpu_torch.models.raft", "process_message"),
+                   ("etcd_tpu_torch.models.raft", "compact_inbox_slots"),
+                   ("etcd_tpu_torch.utils.prng", "threefry2x32"))
+
+# the chaos paths: phase -> (chaos_run knobs, report keys the phase's line
+# prints)
+CHAOS_PATHS = {
+    # cut from C = 1,048,576 to keep the script's time for phase 7b
+    "6": ({"CHAOS_C": str(FULL_GROUPS // 4)}, ()),
+    # chaos_run.py's docstring and tests/test_recovery_crash.py:219
+    "7a": ({"CHAOS_C": str(FULL_GROUPS // 4), "CHAOS_CRASH": "0.01"},
+           ("crashes_injected", "entries_lost_fsync", "restarts_completed",
+            "lost_commit", "snap_window_hit_rate")),
+    # the membership tier's acceptance mix (tests/test_recovery_member.py:359),
+    # cut from C = 1,048,576, and (in main) to one fault and one heal epoch
+    # of 25 rounds, to fit the script's time limit
+    "7b": ({"CHAOS_C": str(FULL_GROUPS // 2), "CHAOS_MEMBER": "0.05",
+            "CHAOS_CRASH": "0.005", "CHAOS_SNAP_BOOST": "200", "CHAOS_MEMBER_BOOST": "4"},
+           ("crashes_injected", "entries_lost_fsync", "conf_changes_applied",
+            "joint_entered", "joint_left", "cc_guard_refusals", "cc_guard_admits",
+            "member_changes_proposed", "snap_window_hit_rate", "member_window_hit_rate",
+            "snap_window_lane_frac", "member_window_lane_frac")),
+}
 
 
-def phase_chaos_full(card, profile=False):
-    """The chaos path at full width: etcd_tpu_torch.chaos_run at
-    CHAOS_C = 1,048,576 and CHAOS_ROUNDS = 75 with its other defaults (each
-    round a replay of its CUDA graph), the launches read around it, its JSON
-    line and verdicts, wall time and peak memory; then a device profile of 2
-    fault rounds eager on one chunk's 131,072 groups of its end state, for
-    the device time under the named functions; with ``profile`` first one
-    of the graph's replay of 2 fault rounds at full width (device busy time,
-    idle share, launches: about a million kernels, minutes of the
-    profiler's own processing)."""
+# the membership tier at the largest size the reference has run (on the
+# CPU), and where its report is kept
+MEMBER_PIN = ({"CHAOS_C": "65536", "CHAOS_ROUNDS": "75", "CHAOS_MEMBER": "0.05",
+               "CHAOS_CRASH": "0.005", "CHAOS_SNAP_BOOST": "200", "CHAOS_MEMBER_BOOST": "4"},
+              "CHAOS_MEMBER_65K_PIN.json")
+# report keys the pin does not compare: the host and its clock
+UNPINNED = ("elapsed_s", "platform")
+
+
+def phase_member_pin(card):
+    """The membership tier at MEMBER_PIN's knobs through
+    etcd_tpu_torch.chaos_run on the card, its report held equal to the
+    reference's committed one on every key (less UNPINNED). Returns the
+    failures."""
+    import os
+
+    from etcd_tpu_torch import chaos_run
+
+    env, name = MEMBER_PIN
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), name)) as f:
+        ref = json.load(f)["reference"]["report"]
+    free_card()
+    t0 = time.perf_counter()
+    # through JSON, as the reference's was kept: its pairs become lists
+    rep = json.loads(json.dumps(chaos_run.run(chaos_run.read_knobs(env), "cuda")))
+    wall = time.perf_counter() - t0
+    free_card()
+    print(json.dumps(rep), flush=True)
+    keys = sorted((set(rep) | set(ref)) - set(UNPINNED))
+    differ = [x for x in keys if rep.get(x) != ref.get(x)]
+    print(f"phase 7b pin: chaos_run C={rep['groups']} on {card}: {rep['rounds']} rounds in "
+          f"{wall:.1f}s; against {name}: {len(keys)} keys, "
+          f"{'equal' if not differ else f'differ on {differ}'}; safe {rep['safe']}, "
+          f"recovered {rep['recovered']} ({rep['groups_with_leader_after_heal']} of "
+          f"{rep['groups']} groups with a leader), lively {rep['lively']}", flush=True)
+    return [f"phase 7b pin: differs from {name} on {differ}"] if differ else []
+
+
+def cut_groups(x, csz):
+    """The first ``csz`` groups of a fleet tree (tensor dataclasses, nested,
+    or None), as contiguous copies; 0-dim counters are copied whole."""
+    import torch
+
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x[..., :csz].contiguous() if x.dim() else x.clone()
+    return x.map(lambda _, v: cut_groups(v, csz))
+
+
+def epoch_runner(epoch, spec, carry, ops):
+    """fn() running ``epoch`` on ``carry`` = [state, inbox, held, crash, key]
+    with node 0 proposing in every group, writing the results back into
+    ``carry``."""
+    import torch
+
+    from etcd_tpu_torch.harness.chaos import zero_violations
+
+    dev = carry[0].term.device
+    C = carry[0].term.shape[-1]
+    prop_len = torch.zeros((spec.M, C), dtype=torch.int32, device=dev)
+    prop_data = torch.zeros((spec.M, spec.E, C), dtype=torch.int32, device=dev)
+    prop_len[0] = 1
+    prop_data[0, 0] = 7
+
+    def run():
+        carry[:] = epoch(*carry, prop_len, prop_data, zero_violations(dev), *ops)[:5]
+    return run
+
+
+def phase_chaos_path(card, phase, rounds=CHAOS_ROUNDS, lens=None, profiled=None,
+                     full_profile=False, time_kernel=False):
+    """One chaos path, CHAOS_PATHS[phase]:
+    etcd_tpu_torch.chaos_run for ``rounds`` rounds (each a replay of its
+    CUDA graph; fault and heal epochs of chaos_run's 50 and 25 rounds, or of
+    ``lens``) with the launches read around it, its JSON line, its
+    verdicts (safe, recovered, lively: all required), wall time and peak
+    memory. Then, on one chunk of its end state, eagerly: with
+    ``time_kernel`` one fault round whose compact_inbox input is kept, and
+    the kernel timed on it against its plain version; with ``profiled`` a
+    device profile of 2 fault rounds with those named functions; with
+    ``full_profile`` first a profile of the graph replay of 2 fault rounds
+    at full width (about a million kernels, minutes of the profiler's own
+    processing). Returns (launches, report, kernel record or None, the
+    failed verdicts)."""
     import torch
 
     from etcd_tpu_torch import chaos_run
-    from etcd_tpu_torch.harness.chaos import build_chaos_epoch, zero_violations
+    from etcd_tpu_torch.harness.chaos import (build_chaos_epoch, chaos_operands, run_chaos,
+                                              summarize_chaos)
     from etcd_tpu_torch.kernels import LAUNCHES, reset_launches
+    from etcd_tpu_torch.models import raft
+    from etcd_tpu_torch.types import ENTRY_CONF_CHANGE
 
-    k = chaos_run.read_knobs({"CHAOS_C": str(FULL_GROUPS),
-                              "CHAOS_ROUNDS": str(CHAOS_ROUNDS)})
+    env, extra = CHAOS_PATHS[phase]
+    k = chaos_run.read_knobs({**env, "CHAOS_ROUNDS": str(rounds)})
     spec, cfg = chaos_run.spec_and_config(k)
+    free_card()
     torch.cuda.reset_peak_memory_stats()
     end = {}
     reset_launches()
     t0 = time.perf_counter()
-    rep = chaos_run.run(k, "cuda", end=end)
+    if lens is None:
+        rep = chaos_run.run(k, "cuda", end=end)
+    else:
+        # a cut of chaos_run's epochs: run_chaos with the driver's knobs, and
+        # the driver's verdicts over the cut epochs
+        rep = run_chaos(spec, cfg, C=k["C"], rounds=rounds, epoch_len=lens[0],
+                        heal_len=lens[1], sync_dispatch=k["sync"], device="cuda",
+                        end=end, **chaos_run.fault_kwargs(k))
+        rep.update(summarize_chaos(rep, rounds=rounds, epoch_len=lens[0],
+                                   heal_len=lens[1], liveness_frac=k["liveness_frac"]))
     wall = time.perf_counter() - t0
     graphs = end.pop("graphs")
     launches = graph_launches(LAUNCHES, graphs)
     peak = torch.cuda.max_memory_allocated()
     print(json.dumps(rep), flush=True)
-    rounds = rep["rounds"]
-    print(f"phase 6 chaos_run C={rep['groups']} on {card}: {rounds} rounds in "
-          f"{wall:.1f}s = {wall * 1e3 / rounds:.1f} ms/round wall (the graphs' "
-          f"capture included), {rep['groups'] * rounds / wall:.1f} group-rounds/s, "
+    done = rep["rounds"]
+    wire = "int16" if cfg.wire_int16 else "int32"
+    print(f"phase {phase} chaos_run C={rep['groups']} ({wire} wire) on {card}: {done} "
+          f"rounds in {wall:.1f}s = {wall * 1e3 / done:.1f} ms/round wall (the graphs' "
+          f"capture included), {rep['groups'] * done / wall:.1f} group-rounds/s, "
           f"fleet_chunks {cfg.fleet_chunks}, peak memory {peak / 2**30:.2f} GiB, "
           f"launches {launches}, graph replays {[g.replays for g in graphs]} of "
           f"{[sum(g.captured.values()) for g in graphs]} recorded kernel-wrapper "
-          f"launches", flush=True)
-    bad = [key for key in ("multi_leader", "hash_mismatch", "commit_regress") if rep[key]]
-    bad += [key for key in ("safe", "recovered", "lively") if not rep[key]]
-    if bad or rep["groups"] != FULL_GROUPS:
-        raise AssertionError(f"chaos_run at C={FULL_GROUPS}: {bad}")
+          f"launches; verdicts safe {rep['safe']}, recovered {rep['recovered']}, lively "
+          f"{rep['lively']} (faulted commits {rep['faulted_commits']} against the floor "
+          f"{rep['faulted_liveness_floor']})" + "".join(
+              f", {key} {rep[key]}" for key in extra), flush=True)
     replayed = sum(g.captured["compact_inbox"] * g.replays for g in graphs)
-    if replayed != rounds * cfg.fleet_chunks:
+    if replayed != done * cfg.fleet_chunks:
         raise AssertionError(f"compact_inbox launched {launches} times, {replayed} in "
-                             f"replays; {rounds} rounds x {cfg.fleet_chunks} chunks")
+                             f"replays; {done} rounds x {cfg.fleet_chunks} chunks")
     del graphs
+    # the verdicts are required; the measurements below print first
+    bad = [key for key in ("safe", "recovered", "lively") if not rep[key]]
+    if rep["groups"] != k["C"]:
+        bad.append(f"groups {rep['groups']}")
+    record = None
+    if not (time_kernel or profiled or full_profile):
+        return launches, rep, record, _verdicts(phase, k, bad)
 
     dev = torch.device("cuda")
-    probs = [torch.tensor(k[p], dtype=torch.float32).to(dev)
-             for p in ("drop_p", "delay_p", "partition_p")]
-    carry = [end.pop(n) for n in ("state", "inbox", "held", "key")]
-
-    def proposals(C):
-        prop_len = torch.zeros((spec.M, C), dtype=torch.int32, device=dev)
-        prop_data = torch.zeros((spec.M, spec.E, C), dtype=torch.int32, device=dev)
-        prop_len[0] = 1
-        prop_data[0, 0] = 7
-        return prop_len, prop_data
-
-    def epoch_runner(epoch, state, inbox, held, key):
-        C = state.term.shape[-1]
-        pl, pd = proposals(C)
-        c = [state, inbox, held, key]
-
-        def run():
-            c[:] = epoch(*c, pl, pd, zero_violations(dev), *probs)[:4]
-        return run
-
+    ops = chaos_operands(spec, device=dev, **{
+        n: v for n, v in chaos_run.fault_kwargs(k).items() if n != "seed"})[0]
+    tiers = dict(with_crash=k["crash_p"] > 0, with_member=k["member_p"] > 0)
+    carry = [end.pop(n) for n in ("state", "inbox", "held", "crash", "key")]
     free_card()
-    if profile:
-        full = epoch_runner(build_chaos_epoch(cfg, spec, 2), *carry)
+    if full_profile:
+        full = epoch_runner(build_chaos_epoch(cfg, spec, 2, **tiers), spec, carry, ops)
         full()                                     # capture and warm
-        profile_rounds("phase 6 profile of 2 fault rounds (graph replay, "
-                       "C=1,048,576)", full, 2, card)
+        profile_rounds(f"phase {phase} profile of 2 fault rounds (graph replay, "
+                       f"C={k['C']})", full, 2, card)
         del full
-    # one chunk's worth of groups, eager, for the named functions' device time
-    csz = FULL_GROUPS // cfg.fleet_chunks
-    def cut(_, t):
-        return t[..., :csz].contiguous()
-
-    state, inbox, held, key = carry
-    part = [state.map(cut), inbox.map(cut),
-            type(held)(idx=cut(None, held.idx), msgs=held.msgs.map(cut)), key]
-    del carry, state, inbox, held
+    # one chunk's worth of groups, eager
+    csz = k["C"] // cfg.fleet_chunks
+    part = [cut_groups(x, csz) for x in carry]
+    del carry
     free_card()
     one = dataclasses.replace(cfg, fleet_chunks=1)
-    eager = epoch_runner(build_chaos_epoch(one, spec, 2, graph=False), *part)
-    eager()                                        # warm
-    profile_rounds(f"phase 6 profile of 2 fault rounds (eager, one chunk, C={csz})",
-                   eager, 2, card, PROFILED_CHAOS)
+    eager = epoch_runner(build_chaos_epoch(one, spec, 2, graph=False, **tiers), spec,
+                         part, ops)
+    seen = {}
+    real = raft.compact_inbox_slots
+
+    def recording(flat, B):
+        seen.update(flat=flat.map(lambda _, x: x.clone()), B=B)
+        return real(flat, B)
+
+    raft.compact_inbox_slots = recording
+    try:
+        eager()                                    # warm, the input kept
+    finally:
+        raft.compact_inbox_slots = real
+    if time_kernel:
+        flat = seen.pop("flat")
+        cc = int(((flat.type != 0) & (flat.ent_type == ENTRY_CONF_CHANGE).any(2)).sum())
+        live = int((flat.type != 0).sum())
+        print(f"phase {phase} compact_inbox input of an eager fault round on one chunk "
+              f"(C={csz}): {live} live slots, {cc} of them carrying conf-change "
+              f"entries", flush=True)
+        if k["member_p"] > 0 and not cc:
+            raise AssertionError(f"phase {phase}: no conf-change entry on the wire")
+        msgs = flat.map(lambda _, x: x.view((spec.M, spec.K) + x.shape[1:]))
+        del flat
+        print(f"phase {phase} ", end="")
+        record = kernel_record(spec, msgs, cfg.inbox_bound,
+                               f"the phase {phase} chaos inbox", "inbox")
+        record["path"] = f"phase {phase}: chaos_run " + " ".join(
+            f"{n}={v}" for n, v in env.items())
+        del msgs
+    seen.clear()
+    if profiled:
+        profile_rounds(f"phase {phase} profile of 2 fault rounds (eager, one chunk, "
+                       f"C={csz})", eager, 2, card, profiled)
     free_card()
-    return launches, rep
+    return launches, rep, record, _verdicts(phase, k, bad)
+
+
+def _verdicts(phase, k, bad) -> list[str]:
+    """The failed verdicts of a chaos path, printed; main fails the run on
+    them after every phase has printed its measurements."""
+    if bad:
+        print(f"phase {phase} FAILED: chaos_run at C={k['C']}: not {bad}", flush=True)
+    return [f"phase {phase}: not {bad}"] if bad else []
 
 
 # functions whose device time the profile reports as named ranges
@@ -729,12 +953,21 @@ def profile_rounds(label, fn, rounds, card, profiled=PROFILED):
               f"{e.count / rounds:8.1f}x  {e.key[:140]}")
 
 
+PHASES = ("1", "2", "3", "4", "5", "6", "7a", "7b")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile two steady rounds of phase 3 and the "
                     "full-width graph replay of two chaos fault rounds (phase 6)")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="the phases to run, comma-separated (default: all; phase 5 "
+                    "needs 4); the kernels and result lines print only when all run")
     args = ap.parse_args(argv)
+    want = args.phases.split(",")
+    if set(want) - set(PHASES):
+        ap.error(f"unknown phases {sorted(set(want) - set(PHASES))}; known {PHASES}")
 
     import torch
 
@@ -756,30 +989,68 @@ def main(argv=None) -> int:
     def done(n):
         print(f"phase {n} done at {time.perf_counter() - t0:.1f}s", flush=True)
 
-    err, inbox_record = phase_kernel()
-    done(1)
-    phase_round()
-    phase_chaos_small()
-    done(2)
-    phase_full(smi, args.profile)
-    free_card()
-    done(3)
-    res, launches = phase_bench(smi)
-    done(4)
-    record = phase_compare(res, smi)
-    del res
-    free_card()
-    done(5)
-    record["launches"] = launches.get("compact_wire", 0)
-    record["max_abs_err"] = max(err, record["max_abs_err"])
-    if not record["launches"]:
-        raise AssertionError("the bench path launched no compact_wire kernel")
-    chaos_launches, _ = phase_chaos_full(smi, args.profile)
-    inbox_record["launches"] = chaos_launches.get("compact_inbox", 0)
-    if not inbox_record["launches"]:
-        raise AssertionError(f"the chaos path launched {chaos_launches}")
+    records = {}
+    if "1" in want:
+        err, records["inbox"] = phase_kernel()
+        done(1)
+    if "2" in want:
+        phase_round()
+        phase_chaos_small()
+        done(2)
+    if "3" in want:
+        phase_full(smi, args.profile)
+        free_card()
+        done(3)
+    if "4" in want or "5" in want:
+        res, launches = phase_bench(smi)
+        done(4)
+        if "5" in want:
+            records["carry"] = phase_compare(res, smi)
+            done(5)
+        del res
+        free_card()
+    paths = {}
+    for phase, kw in (("6", dict(profiled=PROFILED_CHAOS, full_profile=args.profile)),
+                      ("7a", dict(time_kernel=True)),
+                      ("7b", dict(rounds=50, lens=(25, 25), time_kernel=True,
+                                  profiled=PROFILED_MEMBER))):
+        if phase in want:
+            paths[phase] = phase_chaos_path(smi, phase, **kw)
+            done(phase)
+    failed = [f for p in paths.values() for f in p[3]]
+    if "7b" in want:
+        pin = phase_member_pin(smi)
+        done("7b pin")
+        if not pin and paths["7b"][3] == ["phase 7b: not ['recovered']"]:
+            # the reference's own result under this mix, held by the pin
+            print("phase 7b: recovered False, as the reference's at 65,536 groups "
+                  "(CHAOS_MEMBER_65K_PIN.json, held equal above): not a failure of "
+                  "the port; safe and lively hold", flush=True)
+            failed.remove("phase 7b: not ['recovered']")
+        failed += pin
+    if want != list(PHASES):
+        print(f"phases {args.phases} in {time.perf_counter() - t0:.1f}s (a subset: no "
+              "kernels or result line)")
+        return 1 if failed else 0
+
+    carry = records["carry"]
+    carry["launches"] = launches.get("compact_wire", 0)
+    carry["max_abs_err"] = max(err, carry["max_abs_err"])
+    kernels = [carry, records["inbox"]]
+    records["inbox"]["path"] = "phase 6: chaos_run, network tier (timed on phase 1's input)"
+    for phase, record in (("6", records["inbox"]), ("7a", paths["7a"][2]),
+                          ("7b", paths["7b"][2])):
+        record["launches"] = paths[phase][0].get("compact_inbox", 0)
+        if record is not records["inbox"]:
+            kernels.append(record)
+    bad = [r["site"] + " " + r.get("path", "") for r in kernels if not r["launches"]]
+    if bad:
+        raise AssertionError(f"no launch of the kernel on: {bad}")
     print(f"all phases in {time.perf_counter() - t0:.1f}s")
-    print(json.dumps({"kernels": [record, inbox_record]}))
+    print(json.dumps({"kernels": kernels}))
+    if failed:
+        print(f"chip_smoke: FAILED verdicts: {failed}", file=sys.stderr)
+        return 1
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

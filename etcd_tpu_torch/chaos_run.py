@@ -1,21 +1,34 @@
 """The chaos driver on the port: ``python -m etcd_tpu_torch.chaos_run``.
 
-The counterpart of chaos_run.py's network-fault tier (BASELINE config #5:
-the network-partition and randomized-drop functional test at fleet scale):
-CHAOS_C groups x CHAOS_ROUNDS rounds of drop, delay and partition faults
-with the safety checks every round (etcd_tpu_torch/harness/chaos.py), in
-fault epochs of 50 rounds and heal epochs of 25, then one JSON line with
-the violation counts, the liveness figures and the verdicts of
+The counterpart of chaos_run.py (BASELINE config #5: the functional tester's
+network, crash-restart and membership fault cases at fleet scale):
+CHAOS_C groups x CHAOS_ROUNDS rounds of drop, delay and partition faults,
+with CHAOS_CRASH > 0 crash-restart faults and with CHAOS_MEMBER > 0
+membership faults, with the safety checks every round
+(etcd_tpu_torch/harness/chaos.py), in fault epochs of 50 rounds and heal
+epochs of 25, then one JSON line with the violation counts, the crash and
+membership counters, the liveness figures and the verdicts of
 ``summarize_chaos``. It exits 0 when the run is safe, recovered and lively.
+
+    CHAOS_C=262144 CHAOS_CRASH=0.01 python -m etcd_tpu_torch.chaos_run
+    CHAOS_C=1048576 CHAOS_MEMBER=0.05 CHAOS_CRASH=0.005 CHAOS_SNAP_BOOST=200 \
+        CHAOS_MEMBER_BOOST=4 python -m etcd_tpu_torch.chaos_run
 
 The knobs, their defaults and their checks are chaos_run.py's: CHAOS_C
 (262,144 on the card, 1,000 on the CPU), CHAOS_ROUNDS, CHAOS_DROP,
 CHAOS_DELAY, CHAOS_PART, CHAOS_SEED, CHAOS_L, CHAOS_BOUND, CHAOS_WIRE16,
 CHAOS_CHUNKS (131,072-group chunks above 262,144 groups on the card),
-CHAOS_SYNC and CHAOS_LIVENESS_FRAC. The tiers the port does not run yet
-exit 2 unless left off: TELEM=0, CHAOS_LEASE=0, CHAOS_BLACKBOX=0,
-CHAOS_CRASH=0, CHAOS_MEMBER=0, APPLY_KEYS=0, CHAOS_INIT_VOTERS=0 (the
-membership tier's partial boot), CHAOS_PRNG=threefry, and ``--preflight``.
+CHAOS_SYNC and CHAOS_LIVENESS_FRAC (0.2, or 0.1 under the membership tier);
+the crash tier's CHAOS_CRASH, CHAOS_DOWN (3) and CHAOS_DURABILITY (stable,
+or none: the broken persist-nothing model, which must trip the
+leader-completeness checker); the membership tier's CHAOS_MEMBER,
+CHAOS_MEMBER_MIX (standard, simple, shrink), CHAOS_INIT_VOTERS (3 under the
+tier, else 0), CHAOS_SNAP_BOOST and CHAOS_MEMBER_BOOST (1 = uniform crash
+scheduling) and CHAOS_CONFIG_AWARE (0: the config-blind checkers). The
+membership tier runs on the int32 wire (its words use bits 16-20): an
+explicit CHAOS_WIRE16=1 beside it exits 2. The tiers the port does not run
+yet exit 2 unless left off: TELEM=0, CHAOS_LEASE=0, CHAOS_BLACKBOX=0,
+APPLY_KEYS=0, CHAOS_PRNG=threefry, and ``--preflight``.
 """
 from __future__ import annotations
 
@@ -28,7 +41,7 @@ import torch
 
 from etcd_tpu_torch.harness.chaos import run_chaos, summarize_chaos
 from etcd_tpu_torch.types import Spec
-from etcd_tpu_torch.utils.config import RaftConfig
+from etcd_tpu_torch.utils.config import CrashConfig, MemberChaosConfig, RaftConfig
 from etcd_tpu_torch.utils.device import resolve_device
 from etcd_tpu_torch.utils.knobs import env_bool, env_float, env_int, knob_error
 
@@ -37,8 +50,8 @@ EPOCH_LEN, HEAL_LEN = 50, 25
 
 # knobs of chaos_run.py whose tier the port does not run: only "off" is taken
 OFF_KNOBS = {"TELEM": "0", "CHAOS_LEASE": "0", "CHAOS_BLACKBOX": "0",
-             "CHAOS_CRASH": "0", "CHAOS_MEMBER": "0", "APPLY_KEYS": "0",
-             "CHAOS_INIT_VOTERS": "0", "CHAOS_PRNG": "threefry"}
+             "APPLY_KEYS": "0", "CHAOS_PRNG": "threefry"}
+M = 5      # chaos_run.py's member count
 
 
 def read_knobs(environ=None, on_card: bool = True) -> dict:
@@ -46,18 +59,45 @@ def read_knobs(environ=None, on_card: bool = True) -> dict:
     env = os.environ if environ is None else environ
     for name, off in OFF_KNOBS.items():
         if name in env and env[name] != off and not _is_zero(env[name]):
-            knob_error(PROG, f"{name}={env[name]!r}: etcd_tpu_torch runs the network "
-                             f"tier only; set {name}={off}")
+            knob_error(PROG, f"{name}={env[name]!r}: etcd_tpu_torch does not run "
+                             f"this tier yet; set {name}={off}")
     k = {
         "drop_p": env_float(PROG, "CHAOS_DROP", "0.02", 0.0, 1.0, environ=env),
         "delay_p": env_float(PROG, "CHAOS_DELAY", "0.05", 0.0, 1.0, environ=env),
         "partition_p": env_float(PROG, "CHAOS_PART", "0.1", 0.0, 1.0, environ=env),
-        "liveness_frac": env_float(PROG, "CHAOS_LIVENESS_FRAC", "0.2", 0.0, 1.0,
-                                   environ=env),
-        "seed": env_int(PROG, "CHAOS_SEED", "0", environ=env),
-        "sync": env_bool(PROG, "CHAOS_SYNC", "0", environ=env),
-        "wire16": env_bool(PROG, "CHAOS_WIRE16", "1", environ=env),
+        "crash_p": env_float(PROG, "CHAOS_CRASH", "0", 0.0, 1.0, environ=env),
+        "member_p": env_float(PROG, "CHAOS_MEMBER", "0", 0.0, 1.0, environ=env),
     }
+    member_on = k["member_p"] > 0
+    snap_boost = env_float(PROG, "CHAOS_SNAP_BOOST", "1", 1.0, environ=env)
+    member_boost = env_float(PROG, "CHAOS_MEMBER_BOOST", "1", 1.0, environ=env)
+    # the membership tier's conscious liveness floor: joint configs need
+    # both halves to commit, and partial-voter boots leave smaller minorities
+    k["liveness_frac"] = env_float(PROG, "CHAOS_LIVENESS_FRAC",
+                                   "0.1" if member_on else "0.2", 0.0, 1.0, environ=env)
+    init_voters = env_int(PROG, "CHAOS_INIT_VOTERS", "3" if member_on else "0",
+                          environ=env)
+    down_rounds = env_int(PROG, "CHAOS_DOWN", "3", environ=env)
+    try:
+        crash = CrashConfig(down_rounds=down_rounds,
+                            durability=env.get("CHAOS_DURABILITY", "stable"))
+        k["member"] = MemberChaosConfig(
+            mix=env.get("CHAOS_MEMBER_MIX", "standard"), initial_voters=init_voters,
+            snap_crash_boost=snap_boost, member_crash_boost=member_boost)
+    except ValueError as e:
+        knob_error(PROG, str(e))
+    k["crash"] = crash if k["crash_p"] > 0 else None
+    k["seed"] = env_int(PROG, "CHAOS_SEED", "0", environ=env)
+    k["config_aware"] = env_bool(PROG, "CHAOS_CONFIG_AWARE", "1", environ=env)
+    k["sync"] = env_bool(PROG, "CHAOS_SYNC", "0", environ=env)
+    wire16 = env_bool(PROG, "CHAOS_WIRE16", "1", environ=env)
+    if member_on and "CHAOS_WIRE16" in env and wire16:
+        knob_error(PROG, "CHAOS_MEMBER needs the int32 wire (conf-change words "
+                         "use bits 16-20); unset CHAOS_WIRE16")
+    if init_voters > M:
+        knob_error(PROG, f"CHAOS_INIT_VOTERS={init_voters} exceeds the member "
+                         f"count M={M}")
+    k["wire16"] = wire16 and not member_on
     C = env_int(PROG, "CHAOS_C", "262144" if on_card else "1000", 1, environ=env)
     k["C"] = C
     k["rounds"] = env_int(PROG, "CHAOS_ROUNDS", "200", 1, environ=env)
@@ -79,12 +119,20 @@ def _is_zero(raw: str) -> bool:
 def spec_and_config(k: dict) -> tuple[Spec, RaftConfig]:
     """chaos_run.py's geometry: bench.py's Spec at CHAOS_L, and the full
     program with pre-vote, check-quorum, the inbox bound and the int16
-    wire (chaos_run.py:200-230)."""
-    spec = Spec(M=5, L=k["L"], E=1, K=2, W=4, R=2, A=2)
+    wire, int32 under the membership tier (chaos_run.py:200-230)."""
+    spec = Spec(M=M, L=k["L"], E=1, K=2, W=4, R=2, A=2)
     cfg = RaftConfig(pre_vote=True, check_quorum=True, max_inflight=4,
                      inbox_bound=k["bound"], coalesce_commit_refresh=True,
                      wire_int16=k["wire16"], fleet_chunks=k["chunks"])
     return spec, cfg
+
+
+def fault_kwargs(k: dict) -> dict:
+    """run_chaos's fault-mix arguments at the knobs ``k``."""
+    return dict(seed=k["seed"], drop_p=k["drop_p"], delay_p=k["delay_p"],
+                partition_p=k["partition_p"], crash_p=k["crash_p"], crash=k["crash"],
+                member_p=k["member_p"], member=k["member"],
+                config_aware=k["config_aware"])
 
 
 def run(k: dict, device=None, end=None) -> dict:
@@ -93,9 +141,8 @@ def run(k: dict, device=None, end=None) -> dict:
     spec, cfg = spec_and_config(k)
     t0 = time.perf_counter()
     rep = run_chaos(spec, cfg, C=k["C"], rounds=k["rounds"], epoch_len=EPOCH_LEN,
-                    heal_len=HEAL_LEN, seed=k["seed"], drop_p=k["drop_p"],
-                    delay_p=k["delay_p"], partition_p=k["partition_p"],
-                    sync_dispatch=k["sync"], device=dev, end=end)
+                    heal_len=HEAL_LEN, sync_dispatch=k["sync"], device=dev, end=end,
+                    **fault_kwargs(k))
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     rep["elapsed_s"] = round(time.perf_counter() - t0, 1)

@@ -9,6 +9,9 @@ C] delivery view; the keep-mask zeroes the type of dropped slots and the
 compaction kernel packs the survivors into the next inbox. Under
 ``RaftConfig.packed_state`` the state between rounds is the PackedFleet
 storage form, and ``fleet_chunks`` runs the round over C-slices in turn.
+The chaos tier's crash machinery (``crash_restart_fleet``,
+``wipe_crashed_traffic``) and its fault windows (``snapshot_window_mask``,
+``member_window_mask``) work on the whole fleet.
 """
 from __future__ import annotations
 
@@ -23,9 +26,22 @@ from etcd_tpu_torch.models.state import (
     pack_fleet,
     unpack_fleet,
 )
-from etcd_tpu_torch.types import ENT_FIELDS, Msg, Spec, empty_msg
+from etcd_tpu_torch.types import (
+    ENT_FIELDS,
+    ENTRY_CONF_CHANGE,
+    MSG_SNAP,
+    NONE_ID,
+    PR_PROBE,
+    PR_SNAPSHOT,
+    ROLE_FOLLOWER,
+    ROLE_LEADER,
+    Msg,
+    Spec,
+    empty_msg,
+)
 from etcd_tpu_torch.utils.config import RaftConfig
 from etcd_tpu_torch.utils.device import resolve_device
+from etcd_tpu_torch.utils.tree import bcast_to
 
 
 def _unflatten_inbox(spec: Spec, msgs: Msg) -> Msg:
@@ -113,6 +129,117 @@ def init_fleet(spec: Spec, C: int, voters: torch.Tensor | None = None,
     nid = torch.arange(M, dtype=torch.int32, device=dev).unsqueeze(1).expand(M, C)
     return init_node(spec, nid.contiguous(), mask(voters, True),
                      mask(learners, False), seeds, election_tick)
+
+
+def crash_restart_fleet(spec: Spec, state: NodeState, crashed: torch.Tensor,
+                        stable: torch.Tensor, rand_to: torch.Tensor,
+                        keep_log=True) -> tuple[NodeState, torch.Tensor]:
+    """Crash and at once restart the nodes of the mask ``crashed`` [M, C],
+    keeping only their modeled durable state (models/state.py's classes:
+    DURABLE, CAPPED, REPLAY, VOLATILE; etcd_tpu/models/engine.py
+    crash_restart_fleet). ``stable`` [M, C] is each node's fsync'd log
+    prefix, ``rand_to`` [M, C] the restarted node's fresh randomized
+    election timeout, ``keep_log`` a bool or a 0-dim bool tensor (False is
+    the broken persist-nothing model: nothing survives past the snapshot).
+
+    The restarted values are written into the crashed lanes of ``state``'s
+    own leaves (as the JAX program's donated carry is), so the wipe makes no
+    fleet-sized copy; a leaf that shares its storage with another is first
+    given storage of its own. Returns (state, entries_lost), entries_lost
+    the int32 count of log entries this call dropped."""
+    floor = state.snap_index                       # snapshots fsync eagerly
+    kept = torch.maximum(torch.minimum(state.last_index, stable), floor)
+    if isinstance(keep_log, torch.Tensor):
+        durable_last = torch.where(keep_log, kept, floor)
+    else:
+        durable_last = kept if keep_log else floor
+    # commit-only advances never force an fsync: the persisted commit is
+    # capped by the durable log and may legally regress across the crash
+    durable_commit = torch.maximum(torch.minimum(state.commit, durable_last), floor)
+    lost = torch.where(crashed, state.last_index - durable_last, 0).sum().to(torch.int32)
+
+    owners: dict = {}
+    for name, x in state.items():
+        owners.setdefault(x.untyped_storage().data_ptr(), []).append(name)
+    shared = {n for names in owners.values() if len(names) > 1 for n in names}
+    fresh = {n: getattr(state, n).clone() for n in shared}
+    state = state.replace(**fresh)
+
+    def put(name, value):
+        cur = getattr(state, name)
+        m = bcast_to(crashed, cur)
+        if isinstance(value, torch.Tensor):
+            torch.where(m, value.to(cur.dtype), cur, out=cur)
+        else:
+            cur.masked_fill_(m, value)
+
+    # CAPPED
+    put("last_index", durable_last)
+    put("commit", durable_commit)
+    # REPLAY: the state machine and the applied config rewind to the
+    # snapshot; the apply loop re-derives the same hash chain
+    for name, src in (("applied", "snap_index"), ("applied_hash", "snap_hash"),
+                      ("voters", "snap_voters"), ("voters_out", "snap_voters_out"),
+                      ("learners", "snap_learners"),
+                      ("learners_next", "snap_learners_next"),
+                      ("auto_leave", "snap_auto_leave")):
+        put(name, getattr(state, src))
+    # VOLATILE: a fresh follower's boot values
+    put("randomized_timeout", rand_to)
+    put("next_idx", durable_last.unsqueeze(1) + 1)
+    for name in ("lead", "lead_transferee", "ro_from", "ro_pend_from"):
+        put(name, NONE_ID)
+    put("role", ROLE_FOLLOWER)
+    put("pr_state", PR_PROBE)
+    for name in ("election_elapsed", "heartbeat_elapsed", "match", "probe_sent",
+                 "pending_snapshot", "recent_active", "infl_ends", "infl_start",
+                 "infl_count", "votes_responded", "votes_granted",
+                 "pending_conf_index", "uncommitted_size", "ro_ctx", "ro_index",
+                 "ro_acks", "ro_count", "ro_pend_ctx", "ro_pend_count", "rs_ctx",
+                 "rs_index", "rs_count"):
+        put(name, 0)
+    # DURABLE fields (term, vote, the log ring, snap_*, nid, rng_key) stay
+    return state, lost
+
+
+def wipe_crashed_traffic(spec: Spec, inbox: Msg, crashed: torch.Tensor) -> Msg:
+    """Drop every in-flight message from or to a crashed node (mask [M, C])
+    of the flat wire: only the type leaf is zeroed, since type 0 marks an
+    empty slot whose other fields are never read. The from-wipe is what
+    makes the loss of entries past ``stable`` safe: no acknowledgement of
+    an unsynced entry is ever delivered."""
+    M, K = spec.M, spec.K
+    C = inbox.type.shape[-1]
+    t5 = inbox.type.reshape(M, K, M, C)            # [from, K, to, C]
+    kill = crashed.view(M, 1, 1, C) | crashed.view(1, 1, M, C)
+    return inbox.replace(type=torch.where(kill, 0, t5).reshape(M, K * M, C))
+
+
+def snapshot_window_mask(spec: Spec, state: NodeState, inbox: Msg) -> torch.Tensor:
+    """bool [M, C]: nodes inside the snapshot-install window this round: a
+    MsgSnap in flight to the node, or a leader with a peer in PR_SNAPSHOT
+    (``inbox`` is the flat wire, int16 or int32)."""
+    M, K = spec.M, spec.K
+    C = inbox.type.shape[-1]
+    t = inbox.type.reshape(M * K, M, C)            # [from*K, to, C]
+    snap_to = (t == MSG_SNAP).any(0)
+    snap_from = (state.role == ROLE_LEADER) & (state.pr_state == PR_SNAPSHOT).any(1)
+    return snap_to | snap_from
+
+
+def member_window_mask(spec: Spec, state: NodeState) -> torch.Tensor:
+    """bool [M, C]: membership-sensitive nodes: the applied config is joint,
+    or a committed but unapplied conf-change entry lies in (applied,
+    commit]."""
+    L = spec.L
+    li = state.last_index.unsqueeze(1)                                 # [M, 1, C]
+    idxs = torch.arange(L, dtype=torch.int32, device=li.device).view(1, L, 1)
+    ent_idx = li - (((li - 1) % L) - idxs) % L     # the index living at each slot
+    pend_cc = ((ent_idx > state.applied.unsqueeze(1))
+               & (ent_idx <= state.commit.unsqueeze(1))
+               & (ent_idx > state.snap_index.unsqueeze(1))
+               & (state.log_type == ENTRY_CONF_CHANGE)).any(1)
+    return state.voters_out.any(1) | pend_cc
 
 
 def build_round(cfg: RaftConfig, spec: Spec, with_drop_count: bool = False):

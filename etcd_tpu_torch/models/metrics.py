@@ -2,10 +2,12 @@
 
 A small ``FleetMetrics`` of 0-dim int32 tensors stays on the fleet's device
 and is updated by reductions inside the metered round; the host reads it
-once per report (``metrics_report``). ``fleet_summary`` is the whole-fleet
-status aggregate. The counters are int32 like the JAX package's, so a
-window must be short enough not to wrap (``metrics_report`` raises if one
-has). The telemetry and black-box planes are not ported yet.
+once per report (``metrics_report``). ``CrashMetrics`` are the chaos
+tier's crash and membership counters (``crash_metrics_report``).
+``fleet_summary`` is the whole-fleet status aggregate. The counters are
+int32 like the JAX package's, so a window must be short enough not to wrap
+(both reports raise if one has). The telemetry and black-box planes are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -52,6 +54,48 @@ def zero_metrics(device=None) -> FleetMetrics:
 def _count(x: torch.Tensor) -> torch.Tensor:
     """A sum as the int32 the JAX counters add (wrapping as int32 does)."""
     return x.sum().to(I32)
+
+
+@dataclasses.dataclass
+class CrashMetrics(TensorStruct):
+    """The chaos tier's crash-restart and membership counters
+    (etcd_tpu/models/metrics.py CrashMetrics), int32 0-dim tensors carried
+    by the chaos epoch and read once per report."""
+    crashes_injected: torch.Tensor       # nodes killed by the crash mask
+    entries_lost_fsync: torch.Tensor     # log entries dropped past `stable`
+    restarts_completed: torch.Tensor     # down-timers that reached 0
+    member_changes_proposed: torch.Tensor  # conf-change proposals injected
+    cc_guard_refusals: torch.Tensor      # guard outcome at injection: refuse
+    cc_guard_admits: torch.Tensor        # guard outcome at injection: admit
+    conf_changes_applied: torch.Tensor   # lanes whose applied config changed
+    joint_entered: torch.Tensor          # lanes entering a joint config
+    joint_left: torch.Tensor             # lanes leaving a joint config
+    snap_window_lanes: torch.Tensor      # lanes in-window at sampling time
+    snap_window_crashes: torch.Tensor    # crashes that landed in-window
+    member_window_lanes: torch.Tensor
+    member_window_crashes: torch.Tensor
+
+
+def zero_crash_metrics(device=None) -> CrashMetrics:
+    dev = resolve_device(device)
+    return CrashMetrics(**{k: torch.zeros((), dtype=I32, device=dev)
+                           for k in CrashMetrics.names()})
+
+
+def crash_metrics_report(m: CrashMetrics) -> dict:
+    """One host transfer -> the counters as a plain dict, with the two
+    window hit rates; raises OverflowError if a counter has wrapped."""
+    vals = torch.stack([v for _, v in m.items()]).tolist()
+    out = dict(zip(CrashMetrics.names(), vals))
+    if any(v < 0 for v in out.values()):
+        raise OverflowError(
+            "CrashMetrics counter wrapped (i32); shorten the run or shard "
+            "the report window")
+    crashes = max(out["crashes_injected"], 1)
+    out["snap_window_hit_rate"] = round(out["snap_window_crashes"] / crashes, 6)
+    out["member_window_hit_rate"] = round(
+        out["member_window_crashes"] / crashes, 6)
+    return out
 
 
 def build_metered_round(cfg: RaftConfig, spec: Spec,

@@ -84,6 +84,39 @@ class NodeState(TensorStruct):
     rs_count: torch.Tensor
 
 
+# What a crash keeps of each field (etcd_tpu/models/state.py; every field in
+# exactly one class; models/engine.py crash_restart_fleet implements it):
+# DURABLE survives as it is (HardState, snapshot, node id, the log ring's
+# arrays); CAPPED survives up to the fsync floor; REPLAY rewinds to the
+# snapshot and is re-derived by the apply loop; VOLATILE resets to a fresh
+# follower's boot values.
+DURABLE_FIELDS = (
+    "nid", "term", "vote",
+    "log_term", "log_data", "log_type",
+    "snap_index", "snap_term", "snap_hash",
+    "snap_voters", "snap_voters_out", "snap_learners", "snap_learners_next",
+    "snap_auto_leave",
+    "rng_key",
+)
+CAPPED_FIELDS = ("last_index", "commit")
+REPLAY_FIELDS = (
+    "applied", "applied_hash",
+    "voters", "voters_out", "learners", "learners_next", "auto_leave",
+)
+VOLATILE_FIELDS = (
+    "lead", "role",
+    "election_elapsed", "heartbeat_elapsed", "randomized_timeout",
+    "match", "next_idx", "pr_state", "probe_sent", "pending_snapshot",
+    "recent_active",
+    "infl_ends", "infl_start", "infl_count",
+    "votes_responded", "votes_granted",
+    "pending_conf_index", "uncommitted_size", "lead_transferee",
+    "ro_ctx", "ro_index", "ro_from", "ro_acks", "ro_count",
+    "ro_pend_ctx", "ro_pend_from", "ro_pend_count",
+    "rs_ctx", "rs_index", "rs_count",
+)
+
+
 def init_node(
     spec: Spec,
     nid: torch.Tensor,

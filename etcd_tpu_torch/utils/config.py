@@ -1,4 +1,5 @@
-"""Run-level Raft knobs (counterpart of etcd_tpu/utils/config.py RaftConfig).
+"""Run-level knobs (counterparts of etcd_tpu/utils/config.py RaftConfig,
+CrashConfig and MemberChaosConfig).
 
 Every field and every ``__post_init__`` check of the JAX config, so a config
 built for one package means the same in the other. The comments on each
@@ -86,3 +87,51 @@ class RaftConfig:
     @property
     def max_uncommitted_entries(self) -> int:
         return self.max_uncommitted if self.max_uncommitted > 0 else (1 << 30)
+
+
+@dataclasses.dataclass(frozen=True)
+class CrashConfig:
+    """The chaos tier's crash-restart fault model (etcd_tpu/utils/config.py
+    CrashConfig): ``down_rounds`` a crashed node stays down; ``durability``
+    "stable" keeps the log up to the fsync floor (one round behind
+    last_index), "none" is the deliberately broken model that keeps nothing
+    past the snapshot."""
+
+    down_rounds: int = 3
+    durability: str = "stable"
+
+    def __post_init__(self):
+        if self.down_rounds < 1:
+            raise ValueError("down_rounds must be >= 1")
+        if self.durability not in ("stable", "none"):
+            raise ValueError(
+                f"unknown durability {self.durability!r}; "
+                "known: ['none', 'stable']")
+
+
+# the membership tier's palette names (harness/chaos.py member_palette)
+MEMBER_MIXES = ("standard", "simple", "shrink")
+
+
+@dataclasses.dataclass(frozen=True)
+class MemberChaosConfig:
+    """The chaos tier's membership-change fault model
+    (etcd_tpu/utils/config.py MemberChaosConfig): the palette ``mix``,
+    ``initial_voters`` (0 = every member boots a voter), and the crash
+    boosts inside the snapshot-install and membership windows (1.0 = no
+    targeting)."""
+
+    mix: str = "standard"
+    initial_voters: int = 0
+    snap_crash_boost: float = 1.0
+    member_crash_boost: float = 1.0
+
+    def __post_init__(self):
+        if self.mix not in MEMBER_MIXES:
+            raise ValueError(
+                f"unknown member mix {self.mix!r}; known: "
+                f"{sorted(MEMBER_MIXES)}")
+        if self.initial_voters == 1 or self.initial_voters < 0:
+            raise ValueError("initial_voters must be 0 (= all) or >= 2")
+        if self.snap_crash_boost < 1.0 or self.member_crash_boost < 1.0:
+            raise ValueError("crash boosts must be >= 1.0 (1.0 = uniform)")

@@ -2,10 +2,10 @@
 
 Reproduces ``jax.random`` under jax 0.9's defaults (impl ``threefry2x32``,
 ``jax_threefry_partitionable=True``) for the draws the Raft state and the
-chaos harness make: ``PRNGKey``, ``fold_in``, ``split``, ``randint`` of one
-int32 in [lo, hi), and ``bits``, ``uniform`` and ``bernoulli`` over a
-shape. A key is a pair of uint32 words. torch's uint32 coverage is
-partial, so every add, shift and modulo is done on int64 tensors in
+chaos harness make: ``PRNGKey``, ``fold_in``, ``split``, ``randint`` of
+int32 in [lo, hi) per key or over a shape, and ``bits``, ``uniform`` and
+``bernoulli`` over a shape. A key is a pair of uint32 words. torch's uint32
+coverage is partial, so every add, shift and modulo is done on int64 tensors in
 [0, 2**32) and masked back to 32 bits; the node state stores a key as int32
 bit patterns (``stored``), the same bytes as the JAX package's uint32 key.
 
@@ -23,9 +23,11 @@ jax/_src/random.py _randint):
     word is 0 below 2**32 elements); a scalar draw is bits(k, ()).
   * uniform(k, shape) in [0, 1), float32 = (bits >> 9) * 2**-23: jax sets
     the 23 mantissa bits of 1.0 and subtracts 1.0, which is exact.
-  * bernoulli(k, p, shape) = uniform(k, shape) < p, p a float32.
-  * randint(k, (), lo, hi): k1, k2 = split(k); two words from k1 and k2;
-    offset = ((w1 % span) * (2**32 % span) + w2 % span) % span.
+  * bernoulli(k, p, shape) = uniform(k, shape) < p, p a float32 (shape
+    defaults to p's).
+  * randint(k, shape, lo, hi): k1, k2 = split(k); w1 = bits(k1, shape),
+    w2 = bits(k2, shape); offset = ((w1 % span) * (2**32 % span) + w2 %
+    span) % span.
 """
 from __future__ import annotations
 
@@ -112,27 +114,34 @@ def uniform(key: torch.Tensor, shape) -> torch.Tensor:
     return (bits(key, shape) >> 9).to(torch.float32) * (2.0 ** -23)
 
 
-def bernoulli(key: torch.Tensor, p, shape) -> torch.Tensor:
+def bernoulli(key: torch.Tensor, p, shape=None) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)``: bool. ``p`` is a float32
     tensor or a Python float (rounded to float32, as jax converts it); the
-    comparison is in float32, as in jax."""
+    comparison is in float32, as in jax. ``shape=None`` draws one value per
+    element of ``p`` (jax's default shape, ``p.shape``)."""
     if not isinstance(p, torch.Tensor):
         p = torch.full((), p, dtype=torch.float32, device=key.device)
     if p.dtype != torch.float32:
         raise TypeError(f"bernoulli: p must be float32, got {p.dtype}")
-    return uniform(key, shape) < p
+    return uniform(key, tuple(p.shape) if shape is None else shape) < p
 
 
-def randint(key: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
-    """``jax.random.randint(key, (), lo, hi, int32)`` per key: int32."""
+def randint(key: torch.Tensor, lo: int, hi: int, shape=None) -> torch.Tensor:
+    """``jax.random.randint(key, (), lo, hi, int32)`` per key: int32. With
+    ``shape``, one bare key [2] draws ``jax.random.randint(key, shape, lo,
+    hi, int32)``: the two words of each element are ``bits(k1, shape)`` and
+    ``bits(k2, shape)``."""
     span = hi - lo if hi > lo else 1
     k1, k2 = split2(key)
-    w = []
-    for k in (k1, k2):
-        a0, a1 = _words(k)
-        zero = torch.zeros_like(a0)
-        b0, b1 = threefry2x32(a0, a1, zero, zero)
-        w.append(b0 ^ b1)
+    if shape is not None:
+        w = [bits(k1, shape), bits(k2, shape)]
+    else:
+        w = []
+        for k in (k1, k2):
+            a0, a1 = _words(k)
+            zero = torch.zeros_like(a0)
+            b0, b1 = threefry2x32(a0, a1, zero, zero)
+            w.append(b0 ^ b1)
     mult = (1 << 16) % span                  # 2**32 % span, formed in
     mult = ((mult * mult) & M32) % span      # uint32 the way jax does
     off = (((w[0] % span) * mult) & M32) + (w[1] % span)

@@ -5,10 +5,12 @@
 * ``run_chaos`` at C = 16 under chaos_run.py's geometry (one fault epoch and
   one heal epoch of 10 rounds, plus the WaitHealth heal epochs it needs):
   the report, and the final state, inbox, held buffer and key, equal to the
-  JAX run's on every leaf; the epoch makes no host sync in its rounds;
+  JAX run's on every leaf; the epoch makes no host sync in its rounds, nor
+  do the crash and membership tiers' epochs (tests/test_torch_crash.py and
+  tests/test_torch_member.py compare those with JAX);
 * ``python -m etcd_tpu_torch.chaos_run``: its JSON keys (read from the JAX
   driver's source), its defaults, and its exit 2 on the knobs of the tiers
-  the port does not run;
+  the port does not run (the crash and membership tiers' knobs are read);
 * slow: the same comparison at C = 64 for 75 rounds under tests/test_chaos.py's
   SPEC/CFG (K = 4, E = 2, int32 wire, no inbox bound).
 """
@@ -164,9 +166,10 @@ def test_check_invariants_equals_jax(seed):
 # ---------------------------------------------------------------------------
 
 
-def run_both(spec, cfg, C, **kw):
+def run_both(spec, cfg, C, jax_kw=None, **kw):
     """run_chaos in both packages; the JAX run's last epoch outputs are
-    caught by wrapping its epoch programs."""
+    caught by wrapping its epoch programs. ``jax_kw`` replaces arguments on
+    the JAX side (its own config dataclasses)."""
     last = {}
     orig = jch._epoch_program
 
@@ -181,7 +184,7 @@ def run_both(spec, cfg, C, **kw):
 
     jch._epoch_program = catching
     try:
-        jrep = jch.run_chaos(jspec(spec), jcfg(cfg), C=C, **kw)
+        jrep = jch.run_chaos(jspec(spec), jcfg(cfg), C=C, **{**kw, **(jax_kw or {})})
     finally:
         jch._epoch_program = orig
     end = {}
@@ -251,26 +254,70 @@ def test_epoch_rounds_make_no_host_sync(faultless):
     probs = [torch.tensor(p, dtype=torch.float32) for p in (0.1, 0.2, 0.3)]
     watch = _HostTraffic()
     with watch:
-        out = epoch(end["state"], end["inbox"], end["held"], end["key"], prop_len,
+        out = epoch(end["state"], end["inbox"], end["held"], None, end["key"], prop_len,
                     prop_data, tch.zero_violations("cpu"), *probs)
     assert not watch.seen, dict(watch.seen)
     assert out[0].term.shape == (5, 8)
 
 
+@pytest.mark.parametrize("faultless", [False, True])
+@pytest.mark.parametrize("tier", ["crash", "member"])
+def test_crash_and_member_epochs_make_no_host_sync(tier, faultless):
+    """The crash tier's programs (int16 wire) and the membership and crash
+    tiers' programs (int32 wire), fault and heal, in 2 fleet chunks: their
+    rounds read no value on the host and copy no host data to a tensor."""
+    spec, cfg = chaos_geometry(C=8)
+    cfg = dataclasses.replace(cfg, fleet_chunks=2, wire_int16=tier == "crash")
+    member_p = 0.3 if tier == "member" else 0.0
+    end = {}
+    tch.run_chaos(spec, cfg, C=8, rounds=2, epoch_len=1, heal_len=1, crash_p=0.2,
+                  member_p=member_p, device="cpu", end=end)
+    epoch = tch.build_chaos_epoch(cfg, spec, 3, faultless, with_crash=True,
+                                  with_member=tier == "member")
+    prop_len = torch.zeros((5, 8), dtype=torch.int32)
+    prop_len[0] = 1
+    prop_data = torch.full((5, 1, 8), 7, dtype=torch.int32)
+
+    def t(x, dtype=torch.float32):
+        return torch.tensor(x, dtype=dtype)
+
+    probs = (t(0.1), t(0.2), t(0.3))
+    knobs = (t(0.3), t(2, torch.int32), t(True, torch.bool), t(True, torch.bool),
+             t(member_p), tch.member_palette(spec, device="cpu"), t(200.0), t(4.0))
+    watch = _HostTraffic()
+    with watch:
+        out = epoch(end["state"], end["inbox"], end["held"], end["crash"], end["key"],
+                    prop_len, prop_data, tch.zero_violations("cpu"), *probs, *knobs)
+    assert not watch.seen, dict(watch.seen)
+    assert out[3].down.shape == (5, 8)
+    assert (prop_data == 7).all() and prop_len[0].eq(1).all()
+
+
 @pytest.mark.parametrize("tier", ["with_crash", "with_member", "with_telemetry",
                                   "with_blackbox"])
 def test_chaos_epoch_refuses_the_tiers_not_ported(tier):
+    """The telemetry and black-box planes are refused; the crash and
+    membership tiers, ported since, build."""
     spec, cfg = chaos_geometry()
+    if tier in ("with_crash", "with_member"):
+        assert callable(tch.build_chaos_epoch(cfg, spec, 2, **{tier: True}))
+        return
     with pytest.raises(NotImplementedError, match=tier):
         tch.build_chaos_epoch(cfg, spec, 2, **{tier: True})
 
 
 def test_run_chaos_refuses_the_tiers_not_ported_and_the_diet_forms():
+    """The planes and the diet forms are refused; the crash tier runs, and
+    the membership tier is refused only on the int16 wire, as in JAX."""
     spec, cfg = chaos_geometry()
-    for kw in (dict(crash_p=0.1), dict(member_p=0.1), dict(telemetry=True),
-               dict(blackbox=True)):
+    for kw in (dict(telemetry=True), dict(blackbox=True)):
         with pytest.raises(NotImplementedError):
             tch.run_chaos(spec, cfg, C=2, rounds=1, device="cpu", **kw)
+    rep = tch.run_chaos(spec, cfg, C=2, rounds=1, epoch_len=1, heal_len=1, crash_p=0.1,
+                        device="cpu")
+    assert "crashes_injected" in rep
+    with pytest.raises(ValueError, match="int16 wire"):
+        tch.run_chaos(spec, cfg, C=2, rounds=1, member_p=0.1, device="cpu")
     with pytest.raises(ValueError, match="dense wire"):
         tch.build_chaos_epoch(dataclasses.replace(cfg, compact_wire=True), spec, 2)
 
@@ -341,10 +388,7 @@ EXIT_2 = {
     "TELEM=1": {"TELEM": "1"},
     "CHAOS_LEASE=1": {"CHAOS_LEASE": "1"},
     "CHAOS_BLACKBOX=1": {"CHAOS_BLACKBOX": "1"},
-    "CHAOS_CRASH=0.01": {"CHAOS_CRASH": "0.01"},
-    "CHAOS_MEMBER=0.05": {"CHAOS_MEMBER": "0.05"},
     "APPLY_KEYS=64": {"APPLY_KEYS": "64"},
-    "CHAOS_INIT_VOTERS=3": {"CHAOS_INIT_VOTERS": "3"},
     "CHAOS_PRNG=rbg": {"CHAOS_PRNG": "rbg"},
     "CHAOS_DROP=1.5": {"CHAOS_DROP": "1.5"},
     "CHAOS_DELAY=nan": {"CHAOS_DELAY": "nan"},

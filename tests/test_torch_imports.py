@@ -49,7 +49,8 @@ def test_imports_and_runs_a_round_with_jax_blocked():
     harness and the Cluster included) imports, and on the CPU one round of
     the settle program, one of bench.py's packed, deferred and sparse
     steady program and one of the full program (chaos_run's config, every
-    local step) run at C=2, and a 3-member Cluster elects a leader."""
+    local step) run at C=2, a 3-member Cluster elects a leader, and a
+    two-round chaos run with crash and membership faults injects both."""
     code = "\n".join([
         "import sys",
         "for m in ('jax', 'jaxlib', 'flax', 'etcd_tpu'):",
@@ -86,6 +87,13 @@ def test_imports_and_runs_a_round_with_jax_blocked():
         "assert int((ib.type != 0).sum()) > 0, ib.type",
         "cl = Cluster(3, device='cpu'); cl.campaign(0); cl.stabilize()",
         "assert cl.leader() == 0, cl.roles()",
+        "from etcd_tpu_torch.harness.chaos import run_chaos",
+        "from etcd_tpu_torch.utils.config import MemberChaosConfig",
+        "rep = run_chaos(spec, RaftConfig(pre_vote=True, check_quorum=True, inbox_bound=4,",
+        "                                 coalesce_commit_refresh=True), C=4, rounds=2,",
+        "                epoch_len=1, heal_len=1, crash_p=0.3, member_p=0.9,",
+        "                member=MemberChaosConfig(initial_voters=3), device='cpu')",
+        "assert rep['crashes_injected'] > 0 and rep['member_changes_proposed'] > 0, rep",
         "assert not any(m in sys.modules and sys.modules[m] is not None",
         "               for m in ('jax', 'flax', 'etcd_tpu'))",
         "print('ok')",
@@ -126,7 +134,7 @@ UNPORTED = {
 def test_build_round_refuses_what_the_slice_does_not_implement(what):
     """These four parts of a round were refused until the general round was
     ported; build_round now builds each and runs it. What the port still
-    refuses is the chaos harness's crash, membership and plane tiers
+    refuses is the chaos harness's telemetry and black-box planes
     (tests/test_torch_chaos.py)."""
     spec = drive.bench_spec()
     full = dict(message_classes=None, entry_classes=None)
