@@ -18,23 +18,33 @@ Phases, each printing its lines:
      (packed state, deferred emission, sparse outbox) for 16 rounds from
      the packed settled fleet; and on the card that program's CUDA graph
      (parallel/mesh.py build_scan_rounds), two replays of 16 rounds, against
-     the same 32 rounds run eagerly; then chaos_run's programs (harness/chaos.py
-     run_chaos, 2 fleet chunks on the card) for the network tier, the crash
-     tier, the persist-nothing crash tier (which must trip lost_commit) and
-     the membership and crash tiers (int32 wire), each round a replay of its
-     CUDA graph on the card, against the CPU (worker processes, one chunk)
-     on the report and every leaf, with the compact_inbox launches counted
-     (rounds x chunks);
+     the same 32 rounds run eagerly; the dense metered round (bench.py's
+     observability pass) with the telemetry plane and the black-box ring, 8
+     rounds, card against CPU on the counters and every plane leaf, its
+     state and wire equal to the planes-off round's; then chaos_run's
+     programs (harness/chaos.py run_chaos, 2 fleet chunks on the card, the
+     telemetry plane on as chaos_run's default TELEM=1) for the network
+     tier, the crash tier, the persist-nothing crash tier (which must trip
+     lost_commit; with CHAOS_BLACKBOX=1, so its forensics section is not
+     empty) and the membership and crash tiers (int32 wire), each round a
+     replay of its CUDA graph on the card, against the CPU (worker
+     processes, one chunk) on the report (telemetry, timeline, forensics)
+     and every state, wire and plane leaf, with the compact_inbox launches
+     counted (rounds x chunks);
   3. the dense eager path (immediate emission): init_fleet, settle_leaders and 16
      steady_rounds at C = 262,144 groups with the kernel launch count read
      around that run, the commit advance and hash-chain checks,
      group-rounds/s and peak memory (``--profile`` adds a device profile);
   4. the bench path at full width: etcd_tpu_torch.bench's run at its
      defaults (C = 1,048,576: settle, pack, 16 rounds x (1 + 3 timed) as one
-     CUDA graph, the commit check, the metered pass), printing its JSON line,
-     with the launches counted around it (the graph's recorded launches
-     times its replays, plus the eager ones) and its peak memory;
-  5. the same steady program run eagerly for comparison on 262,144 groups of
+     CUDA graph, the commit check, the observability pass with TELEM=1 and
+     BENCH_BLACKBOX=1: the metered, bare and ring probes), printing its JSON
+     line, with the launches counted around it (the graph's recorded
+     launches times its replays, plus the eager ones: the planes add none),
+     its peak memory by part, telemetry_overhead_pct (at most 10, bench.py's
+     bar) and the ring probe's peak (at most 1.5 GiB above the metered
+     pass's);
+  5. the same steady program run eagerly for comparison on 131,072 groups of
      that fleet, the compaction kernel timed on the outbox of its last round
      (the main path's own input) against its plain version and its bound, a
      device profile of two eager rounds (launches per round, device busy
@@ -44,25 +54,29 @@ Phases, each printing its lines:
      CHAOS_C = 262,144, CHAOS_ROUNDS = 75 (a fault epoch of 50 rounds, a
      heal epoch of 25, and the WaitHealth heal epochs it needs) and its
      other defaults (drop 0.02, delay 0.05, partition 0.1, L = 16, bound 4,
-     int16 wire), its JSON line and verdicts (safe, recovered, lively), wall
-     time, launches and peak memory; then a device profile of 2 eager fault
-     rounds (device busy time, idle share, launches per round, device time
-     under tick_timers, process_message, apply_round, the fault draws,
-     _merge_delayed, check_invariants and the kernel); ``--profile`` adds
-     one of the graph replay of 2 fault rounds;
+     int16 wire, TELEM=1), its JSON line and verdicts (safe, recovered,
+     lively), its flight-recorder timeline (monotone per counter, none
+     wrapped), wall time, launches and peak memory; then a device profile of
+     2 eager fault rounds with both planes (device busy time, idle share,
+     launches per round, device time under tick_timers, process_message,
+     apply_round, the fault draws, _merge_delayed, check_invariants, the
+     kernel, telemetry_update, blackbox_update and msg_activity);
+     ``--profile`` adds one of the graph replay of 2 fault rounds;
   7a. the crash tier at its documented size: CHAOS_C = 262,144,
-     CHAOS_CRASH = 0.01, 75 rounds, its JSON line, verdicts, crash counters,
-     wall time, launches and peak memory, and the kernel timed on the
-     compact_inbox input of an eager fault round;
+     CHAOS_CRASH = 0.01, 75 rounds, with TELEM=1 and CHAOS_BLACKBOX=1 (a safe
+     run: forensics finds no group), its JSON line, verdicts, timeline, crash
+     counters, wall time, launches and peak memory, and the kernel timed on
+     the compact_inbox input of an eager fault round;
   7b. the membership and crash tiers (CHAOS_MEMBER = 0.05, CHAOS_CRASH =
      0.005, CHAOS_SNAP_BOOST = 200, CHAOS_MEMBER_BOOST = 4, int32 wire) at
-     C = 524,288 in 4 chunks, one fault and one heal epoch of 25 rounds, the
+     C = 262,144 in 2 chunks, one fault and one heal epoch of 25 rounds, the
      same lines plus the membership counters, the kernel timed on an inbox
      carrying conf-change words, and a device profile of 2 eager fault
      rounds on one chunk (pre_round, crash_restart_fleet,
      check_recovery_invariants, inject_member); then the same knobs at
-     C = 65,536 for 75 rounds, the report held key for key to the
-     reference's committed one (CHAOS_MEMBER_65K_PIN.json).
+     C = 65,536 for 75 rounds with TELEM=0, the report held key for key to
+     the reference's committed one (CHAOS_MEMBER_65K_PIN.json, which holds
+     no plane keys).
 Then a line with the kernels' JSON record (the one kernel: at its carry
 site, and at compact_inbox on the network, crash and membership paths),
 nvidia-smi's name and power limit, and last {"ok": true, "device": {...}}.
@@ -355,6 +369,58 @@ def phase_round():
     print(f"phase 2 C=64: CUDA graph of 16 rounds ({sum(scan.captured.values())} "
           f"kernel launches recorded: {dict(scan.captured)}) replayed twice == "
           "32 eager rounds on every packed state and wire leaf")
+    phase_metered_planes(spec, cfg, settled)
+
+
+def phase_metered_planes(spec, cfg, settled, rounds=8):
+    """The dense metered round with both planes from the settled fleet, card
+    against CPU on the state, wire, counters and every plane leaf, and
+    against the planes-off metered round on the state and wire; the planes
+    add no launch of the kernel."""
+    import torch
+
+    from etcd_tpu_torch import drive
+    from etcd_tpu_torch.kernels import LAUNCHES
+    from etcd_tpu_torch.models.blackbox import init_blackbox
+    from etcd_tpu_torch.models.metrics import build_metered_round, zero_metrics
+    from etcd_tpu_torch.models.state import unpack_fleet
+    from etcd_tpu_torch.models.telemetry import init_telemetry
+
+    both = build_metered_round(cfg, spec, with_telemetry=True, with_blackbox=True)
+    bare = build_metered_round(cfg, spec)
+    ends = {}
+    for dev in ("cuda", "cpu"):
+        packed, ib = settled[dev]
+        st = unpack_fleet(spec, packed)
+        args = drive.steady_inputs(spec, 64, dev)
+        on = [st, ib, zero_metrics(dev), init_telemetry(spec, st), init_blackbox(spec, st)]
+        off = [st.map(lambda _, x: x.clone()), ib.map(lambda _, x: x.clone()),
+               zero_metrics(dev)]
+        before = LAUNCHES["compact_wire"]
+        for _ in range(rounds):
+            on = list(both(on[0], on[1], *args, *on[2:]))
+        planes = LAUNCHES["compact_wire"] - before
+        for _ in range(rounds):
+            off = list(bare(off[0], off[1], *args, off[2]))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        bad = [d for n, a, b in zip(("state", "inbox", "metrics"), on, off)
+               for d in tree_diff(a, b, n)]
+        if bad or (dev == "cuda" and planes != rounds):
+            raise AssertionError(f"metered round on {dev}: planes on != off on {bad}, "
+                                 f"or {planes} kernel launches in {rounds} rounds")
+        ends[dev] = on
+    bad = [d for n, a, b in zip(("state", "inbox", "metrics", "tele", "ring"),
+                                ends["cuda"], ends["cpu"]) for d in tree_diff(a, b, n)]
+    if bad:
+        raise AssertionError(f"metered round with both planes: card != CPU on {bad}")
+    tele, ring = ends["cuda"][3], ends["cuda"][4]
+    print(f"phase 2 C=64: {rounds} dense metered rounds with the telemetry plane and "
+          f"the black-box ring, card == CPU on the counters and every plane leaf "
+          f"({int(tele.commit_hist[-1])} commit-latency samples, "
+          f"{int((ring.ring != 0).sum())} nonzero event words), state and wire == the "
+          f"planes-off round's, {rounds} kernel launches (the planes add none)",
+          flush=True)
 
 
 def graph_launches(counted, graphs):
@@ -389,7 +455,8 @@ SMALL_CHAOS = (
     # (tests/test_recovery_crash.py:65); it must trip the checker
     ("persist-nothing", {"CHAOS_CRASH": "0.12", "CHAOS_DOWN": "2",
                          "CHAOS_DURABILITY": "none", "CHAOS_DROP": "0",
-                         "CHAOS_PART": "0", "CHAOS_DELAY": "0.08"}, 25, 25, 10),
+                         "CHAOS_PART": "0", "CHAOS_DELAY": "0.08",
+                         "CHAOS_BLACKBOX": "1"}, 25, 25, 10),
     ("member+crash", {"CHAOS_MEMBER": "0.05", "CHAOS_CRASH": "0.005",
                       "CHAOS_SNAP_BOOST": "200", "CHAOS_MEMBER_BOOST": "4"}, 20, 10, 10),
 )
@@ -451,7 +518,7 @@ def phase_chaos_small(C=64, chunks=2):
             cpu_rep, b, cpu_launches = fut.result()
             if rep != cpu_rep:
                 raise AssertionError(f"chaos {name}: card {rep} != CPU {cpu_rep}")
-            bad = [d for leaf in ("state", "inbox", "held", "crash", "key")
+            bad = [d for leaf in ("state", "inbox", "held", "crash", "key", "tele", "bb")
                    for d in tree_diff(a[leaf], b[leaf], leaf)]
             if bad:
                 raise AssertionError(f"chaos {name} at C={C}: card != CPU on {bad}")
@@ -464,16 +531,48 @@ def phase_chaos_small(C=64, chunks=2):
                                      f"{cpu_launches}) over {done} rounds x {chunks} "
                                      f"chunks (+ {warm} in the graphs' warm-up rounds), "
                                      f"{replayed} replayed")
-            if name == "persist-nothing" and not rep["lost_commit"] > 0:
-                raise AssertionError(f"persist-nothing run did not trip lost_commit: {rep}")
+            if name == "persist-nothing" and not (
+                    rep["lost_commit"] > 0 and rep["forensics"]["captured"]):
+                raise AssertionError(f"persist-nothing run did not trip lost_commit, or "
+                                     f"its forensics are empty: {rep}")
+            bad = timeline_faults(rep)
+            if bad:
+                raise AssertionError(f"chaos {name}: timeline {bad}")
             wire = "int32" if "CHAOS_MEMBER" in env else "int16"
             print(f"phase 2 chaos {name} C={C} in {chunks} chunks ({wire} wire, "
                   f"{time.perf_counter() - t0:.1f}s): {done} rounds as replays of "
                   f"{len(graphs)} CUDA graphs, card (kernel at compact_inbox: rounds x "
                   f"chunks = {replayed} launches replayed, plus {warm} in the graphs' "
                   f"eager warm-up rounds) == CPU (plain, one chunk) on the report and "
-                  f"every state, inbox, held-buffer and CrashState leaf: "
-                  f"{json.dumps(rep)}", flush=True)
+                  f"every state, inbox, held-buffer, CrashState, telemetry and ring "
+                  f"leaf: {json.dumps(rep)}", flush=True)
+
+
+TIMELINE_COUNTERS = ("round", "commit_sum", "elect_sum", "heal_sum", "leader_changes",
+                     "snapshot_installs", "heal_rounds")
+
+
+def timeline_faults(rep) -> list:
+    """What is wrong with a report's flight-recorder timeline: a missing one
+    or telemetry report, a wrapped row, or a counter (a histogram bucket, a
+    violation or crash counter among them) that moves down between rows."""
+    rows = rep.get("timeline")
+    if not rows or "telemetry" not in rep:
+        return ["no timeline or telemetry report"]
+    bad = [f"row {i} wrapped" for i, r in enumerate(rows) if r["wrapped"]]
+
+    def counters(r):
+        out = {k: r[k] for k in TIMELINE_COUNTERS}
+        for h in ("commit_hist", "elect_hist", "heal_hist"):
+            out.update({f"{h}[{i}]": v for i, v in enumerate(r[h])})
+        out.update({f"violations.{k}": v for k, v in r["violations"].items()})
+        out.update({k: r[k] for k in ("crashes_injected", "restarts_completed") if k in r})
+        return out
+
+    for i, (a, b) in enumerate(zip(rows, rows[1:])):
+        ca, cb = counters(a), counters(b)
+        bad += [f"{k} falls from row {i} to {i + 1}" for k in ca if cb[k] < ca[k]]
+    return bad
 
 
 def phase_full(card, profile=False, groups=FULL_GROUPS // 4):
@@ -542,7 +641,6 @@ def phase_bench(card):
     from etcd_tpu_torch.kernels import LAUNCHES, reset_launches
 
     knobs = bench.read_knobs({})
-    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
     res = bench.run(knobs, "cuda")
@@ -550,18 +648,40 @@ def phase_bench(card):
     wall = time.perf_counter() - t0
     scan = res.scan
     launches = graph_launches(LAUNCHES, [scan])
-    peak = torch.cuda.max_memory_allocated()
     print(json.dumps(res.report))
     rep = res.report
     per_round = {k: v / knobs.inner for k, v in scan.captured.items()}
+    peaks = {k: round(v / 2**30, 3) for k, v in res.peaks.items()}
     print(f"phase 4 bench C={knobs.C} on {card}: {wall:.1f}s in all, settle "
           f"{res.settle_rounds}+1 rounds, CUDA graph of {knobs.inner} rounds x "
           f"{scan.replays} replays (timed {', '.join(f'{t:.4f}' for t in res.timed_s)} s), "
-          f"{rep['value']} group-rounds/s, peak memory {peak / 2**30:.2f} GiB, "
+          f"{rep['value']} group-rounds/s, peak memory {max(peaks.values()):.2f} GiB "
+          f"(GiB by part, the peak reset between parts: {peaks}), "
           f"launches {launches}, recorded per graph round {per_round}", flush=True)
+    print(f"phase 4 planes (TELEM=1, BENCH_BLACKBOX=1): commit latency p50 "
+          f"{rep['commit_latency_p50_rounds']} p99 {rep['commit_latency_p99_rounds']} "
+          f"rounds, telemetry_overhead_pct {rep['telemetry_overhead_pct']}, "
+          f"ring_overhead_pct {rep['ring_overhead_pct']}, ring probe peak "
+          f"{peaks['ring']} GiB against the metered pass's {peaks['metered']} GiB",
+          flush=True)
     if per_round.get("compact_wire") != 1:
         raise AssertionError(f"the graph holds {dict(scan.captured)} launches for "
                              f"{knobs.inner} rounds; compact_wire must be once a round")
+    # settle (its rounds + 1), the graph's eager warm-up round and its
+    # replays, and the three probes' 1 + 3 x 8 metered, bare and ring rounds:
+    # the planes launch no compaction of their own
+    probes = 3 * (1 + bench.PROBE_PASSES * bench.METERED_ROUNDS)
+    want = res.settle_rounds + 1 + 1 + knobs.inner * scan.replays + probes
+    if launches.get("compact_wire") != want:
+        raise AssertionError(f"compact_wire launched {launches} times on the bench "
+                             f"path; {want} rounds ran")
+    if not rep["telemetry_overhead_pct"] <= 10:
+        raise AssertionError(f"telemetry_overhead_pct {rep['telemetry_overhead_pct']} "
+                             "> 10, bench.py's bar for the plane")
+    if not res.peaks["ring"] - res.peaks["metered"] <= 1.5 * 2**30:
+        raise AssertionError(f"the ring probe's peak is {res.peaks['ring']} B, more "
+                             f"than 1.5 GiB above the metered pass's "
+                             f"{res.peaks['metered']} B")
     slack = 1 - 4 / (knobs.inner * knobs.reps)
     if not rep["commits_per_group_per_round"] >= slack:
         raise AssertionError(f"metered commits_per_group_per_round "
@@ -572,9 +692,9 @@ def phase_bench(card):
     return res, launches
 
 
-def phase_compare(res, card, rounds=16, groups=FULL_GROUPS // 4):
+def phase_compare(res, card, rounds=16, groups=FULL_GROUPS // 8):
     """The bench's steady program run eagerly on the first ``groups`` groups
-    of its fleet (cut from C = 1,048,576 to 262,144 to keep the script's
+    of its fleet (cut from C = 1,048,576 to 131,072 to keep the script's
     time for the chaos paths), the kernel timed on the outbox of its last
     round, and device profiles of two eager rounds and one replay of a
     fresh graph of ``rounds`` rounds."""
@@ -640,7 +760,11 @@ PROFILED_CHAOS = (("etcd_tpu_torch.models.raft", "tick_timers"),
                   ("etcd_tpu_torch.harness.chaos", "_merge_delayed"),
                   ("etcd_tpu_torch.harness.chaos", "check_invariants"),
                   ("etcd_tpu_torch.models.raft", "compact_inbox_slots"),
-                  ("etcd_tpu_torch.utils.prng", "threefry2x32"))
+                  ("etcd_tpu_torch.utils.prng", "threefry2x32"),
+                  ("etcd_tpu_torch.harness.chaos", "telemetry_update"),
+                  ("etcd_tpu_torch.harness.chaos", "blackbox_update"),
+                  ("etcd_tpu_torch.harness.chaos", "msg_activity"),
+                  ("etcd_tpu_torch.models.blackbox", "msg_activity"))
 PROFILED_MEMBER = (("etcd_tpu_torch.harness.chaos", "pre_round"),
                    ("etcd_tpu_torch.harness.chaos", "crash_restart_fleet"),
                    ("etcd_tpu_torch.harness.chaos", "check_recovery_invariants"),
@@ -655,13 +779,15 @@ CHAOS_PATHS = {
     # cut from C = 1,048,576 to keep the script's time for phase 7b
     "6": ({"CHAOS_C": str(FULL_GROUPS // 4)}, ()),
     # chaos_run.py's docstring and tests/test_recovery_crash.py:219
-    "7a": ({"CHAOS_C": str(FULL_GROUPS // 4), "CHAOS_CRASH": "0.01"},
+    "7a": ({"CHAOS_C": str(FULL_GROUPS // 4), "CHAOS_CRASH": "0.01",
+            "CHAOS_BLACKBOX": "1"},
            ("crashes_injected", "entries_lost_fsync", "restarts_completed",
             "lost_commit", "snap_window_hit_rate")),
     # the membership tier's acceptance mix (tests/test_recovery_member.py:359),
-    # cut from C = 1,048,576, and (in main) to one fault and one heal epoch
-    # of 25 rounds, to fit the script's time limit
-    "7b": ({"CHAOS_C": str(FULL_GROUPS // 2), "CHAOS_MEMBER": "0.05",
+    # cut from C = 1,048,576 to 262,144 groups (in 131,072-group chunks, the
+    # chunk chaos_run.py takes at full width), and (in main) to one fault and
+    # one heal epoch of 25 rounds, to fit the script's time limit
+    "7b": ({"CHAOS_C": str(FULL_GROUPS // 4), "CHAOS_CHUNKS": "2", "CHAOS_MEMBER": "0.05",
             "CHAOS_CRASH": "0.005", "CHAOS_SNAP_BOOST": "200", "CHAOS_MEMBER_BOOST": "4"},
            ("crashes_injected", "entries_lost_fsync", "conf_changes_applied",
             "joint_entered", "joint_left", "cc_guard_refusals", "cc_guard_admits",
@@ -671,9 +797,11 @@ CHAOS_PATHS = {
 
 
 # the membership tier at the largest size the reference has run (on the
-# CPU), and where its report is kept
+# CPU), and where its report is kept; that report holds no plane keys, so
+# the run keeps the telemetry plane off
 MEMBER_PIN = ({"CHAOS_C": "65536", "CHAOS_ROUNDS": "75", "CHAOS_MEMBER": "0.05",
-               "CHAOS_CRASH": "0.005", "CHAOS_SNAP_BOOST": "200", "CHAOS_MEMBER_BOOST": "4"},
+               "CHAOS_CRASH": "0.005", "CHAOS_SNAP_BOOST": "200", "CHAOS_MEMBER_BOOST": "4",
+               "TELEM": "0"},
               "CHAOS_MEMBER_65K_PIN.json")
 # report keys the pin does not compare: the host and its clock
 UNPINNED = ("elapsed_s", "platform")
@@ -721,9 +849,9 @@ def cut_groups(x, csz):
 
 
 def epoch_runner(epoch, spec, carry, ops):
-    """fn() running ``epoch`` on ``carry`` = [state, inbox, held, crash, key]
-    with node 0 proposing in every group, writing the results back into
-    ``carry``."""
+    """fn() running ``epoch`` on ``carry`` = [state, inbox, held, crash, key,
+    tele, bb] with node 0 proposing in every group, writing the results back
+    into ``carry``."""
     import torch
 
     from etcd_tpu_torch.harness.chaos import zero_violations
@@ -736,7 +864,8 @@ def epoch_runner(epoch, spec, carry, ops):
     prop_data[0, 0] = 7
 
     def run():
-        carry[:] = epoch(*carry, prop_len, prop_data, zero_violations(dev), *ops)[:5]
+        out = epoch(*carry[:5], prop_len, prop_data, zero_violations(dev), *carry[5:], *ops)
+        carry[:] = out[:5] + out[6:8]
     return run
 
 
@@ -758,10 +887,11 @@ def phase_chaos_path(card, phase, rounds=CHAOS_ROUNDS, lens=None, profiled=None,
     import torch
 
     from etcd_tpu_torch import chaos_run
-    from etcd_tpu_torch.harness.chaos import (build_chaos_epoch, chaos_operands, run_chaos,
-                                              summarize_chaos)
+    from etcd_tpu_torch.harness.chaos import (build_chaos_epoch, chaos_operands,
+                                              empty_blackbox, run_chaos, summarize_chaos)
     from etcd_tpu_torch.kernels import LAUNCHES, reset_launches
     from etcd_tpu_torch.models import raft
+    from etcd_tpu_torch.models.telemetry import init_telemetry
     from etcd_tpu_torch.types import ENTRY_CONF_CHANGE
 
     env, extra = CHAOS_PATHS[phase]
@@ -808,15 +938,39 @@ def phase_chaos_path(card, phase, rounds=CHAOS_ROUNDS, lens=None, profiled=None,
     bad = [key for key in ("safe", "recovered", "lively") if not rep[key]]
     if rep["groups"] != k["C"]:
         bad.append(f"groups {rep['groups']}")
+    if k["telemetry"]:
+        faults = timeline_faults(rep)
+        t = rep["telemetry"]
+        print(f"phase {phase} planes: {len(rep['timeline'])} timeline rows, "
+              f"{'monotone and unwrapped' if not faults else faults}; commit latency "
+              f"p50 {t['commit_latency_rounds']['p50']} p99 "
+              f"{t['commit_latency_rounds']['p99']} rounds, election p50 "
+              f"{t['election_duration_rounds']['p50']} p99 "
+              f"{t['election_duration_rounds']['p99']}, heal p50 "
+              f"{t['heal_latency_rounds']['p50']} p99 {t['heal_latency_rounds']['p99']}, "
+              f"leader changes {t['leader_changes_total']}"
+              + (f"; forensics: {rep['forensics']['groups_violating']} groups violating "
+                 f"over {rep['forensics']['rounds_observed']} rounds"
+                 if k["blackbox"] else ""), flush=True)
+        bad += [f"timeline: {f}" for f in faults]
+    if k["blackbox"] and rep["safe"] and rep["forensics"]["groups_violating"]:
+        bad.append(f"forensics finds {rep['forensics']['groups_violating']} groups in a "
+                   "safe run")
     record = None
     if not (time_kernel or profiled or full_profile):
         return launches, rep, record, _verdicts(phase, k, bad)
 
     dev = torch.device("cuda")
     ops = chaos_operands(spec, device=dev, **{
-        n: v for n, v in chaos_run.fault_kwargs(k).items() if n != "seed"})[0]
-    tiers = dict(with_crash=k["crash_p"] > 0, with_member=k["member_p"] > 0)
-    carry = [end.pop(n) for n in ("state", "inbox", "held", "crash", "key")]
+        n: v for n, v in chaos_run.fault_kwargs(k).items()
+        if n not in ("seed",) + chaos_run.PLANE_KNOBS})[0]
+    # the eager rounds below carry both planes, whatever the run did
+    tiers = dict(with_crash=k["crash_p"] > 0, with_member=k["member_p"] > 0,
+                 with_telemetry=True, with_blackbox=True)
+    carry = [end.pop(n) for n in ("state", "inbox", "held", "crash", "key", "tele")]
+    if carry[-1] is None:
+        carry[-1] = init_telemetry(spec, carry[0])
+    carry.append(end.pop("bb") or empty_blackbox(spec, carry[0]))
     free_card()
     if full_profile:
         full = epoch_runner(build_chaos_epoch(cfg, spec, 2, **tiers), spec, carry, ops)
@@ -919,7 +1073,8 @@ def profile_rounds(label, fn, rounds, card, profiled=PROFILED):
         for mod, fn_name, f in saved:
             setattr(mod, fn_name, f)
     events = prof.key_averages()
-    ranges = {n for _, n in profiled}
+    names = list(dict.fromkeys(n for _, n in profiled))     # a name may be in two modules
+    ranges = set(names)
     # the named ranges show on the device timeline as spans from their
     # first to their last kernel; only kernels count as busy time
     kernels = [e for e in events
@@ -939,7 +1094,7 @@ def profile_rounds(label, fn, rounds, card, profiled=PROFILED):
     if spans:
         print(f"{label} device span ms/round of: " + ", ".join(
             f"{n} {spans[n].device_time_total / 1e3 / rounds:.2f} "
-            f"({spans[n].count / rounds:g}x)" for _, n in profiled if n in spans))
+            f"({spans[n].count / rounds:g}x)" for n in names if n in spans))
     # the kernels launched under each range (its CPU-side event's device
     # time): device busy time, where a span also holds the gaps between
     calls = {e.key: e for e in events
@@ -947,7 +1102,7 @@ def profile_rounds(label, fn, rounds, card, profiled=PROFILED):
     if calls:
         print(f"{label} device busy ms/round under: " + ", ".join(
             f"{n} {calls[n].device_time_total / 1e3 / rounds:.2f}"
-            for _, n in profiled if n in calls))
+            for n in names if n in calls))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"{label}   {e.self_device_time_total / 1e3 / rounds:9.3f} ms/round "
               f"{e.count / rounds:8.1f}x  {e.key[:140]}")

@@ -10,17 +10,25 @@ the CUDA card (or the CPU, where a caller passes ``device="cpu"``):
      one CUDA graph (parallel/mesh.py build_scan_rounds): once to capture
      and warm, then ``reps`` timed replays; the best gives the rate;
   3. the commit advance is checked (bench.py:545-551), the fleet unpacked;
-  4. the metered pass: 3 timed passes of 8 metered rounds of the dense
-     program (models/metrics.py), whose counters fill the report;
+  4. the observability pass (bench.py:555-690), each probe timed as the
+     best of 3 passes of 8 rounds of the dense program: the metered round
+     (models/metrics.py) with the telemetry plane (TELEM=1), whose counters
+     and latency histograms fill the report; the bare round; and the
+     metered round with the telemetry plane and the black-box event ring
+     (BENCH_BLACKBOX=1). telemetry_overhead_pct is (t_obs - t_bare) /
+     t_bare and ring_overhead_pct (t_bb - t_obs) / t_bare, bench.py's
+     formulas;
   5. one JSON line with bench.py's keys: the metric, its value and unit,
-     the counters and the bytes-per-group footprint.
+     the counters, the commit-latency percentiles, the overheads, the
+     telemetry report and the bytes-per-group footprint.
 
 The knobs are bench.py's, with its accelerator defaults: BENCH_C,
-BENCH_ROUNDS, BENCH_REPS, BENCH_PACKED, BENCH_SPARSE, BENCH_DEFERRED and
-BENCH_CHUNKS. A knob the port does not implement (the telemetry and
-black-box planes, the apply benchmark, other ring, window, inbox or wire
-forms, --preflight) exits 2 unless it is set to the one value the port
-runs, as bench.py exits 2 on a value it cannot honour.
+BENCH_ROUNDS, BENCH_REPS, BENCH_PACKED, BENCH_SPARSE, BENCH_DEFERRED,
+BENCH_CHUNKS, TELEM (1), TELEM_BUCKETS (8, in 2..16) and BENCH_BLACKBOX
+(1). A knob the port does not implement (the apply benchmark, other ring,
+window, inbox or wire forms, the profiler, --preflight) exits 2 unless it
+is set to the one value the port runs, as bench.py exits 2 on a value it
+cannot honour.
 """
 from __future__ import annotations
 
@@ -34,7 +42,13 @@ import time
 import torch
 
 from etcd_tpu_torch import drive
-from etcd_tpu_torch.models.engine import empty_inbox, inbox_bytes_per_group, init_fleet
+from etcd_tpu_torch.models.blackbox import init_blackbox
+from etcd_tpu_torch.models.engine import (
+    build_round,
+    empty_inbox,
+    inbox_bytes_per_group,
+    init_fleet,
+)
 from etcd_tpu_torch.models.metrics import (
     build_metered_round,
     metrics_report,
@@ -46,6 +60,7 @@ from etcd_tpu_torch.models.state import (
     unpack_field,
     unpack_fleet,
 )
+from etcd_tpu_torch.models.telemetry import init_telemetry, telemetry_report
 from etcd_tpu_torch.parallel.mesh import ScanRounds, build_scan_rounds
 from etcd_tpu_torch.types import Spec
 from etcd_tpu_torch.utils.config import RaftConfig
@@ -59,11 +74,10 @@ METERED_ROUNDS = 8
 PROBE_PASSES = 3
 
 # knobs bench.py reads that the port runs at one value only: its
-# accelerator default, or the plane off
+# accelerator default, or the feature off
 FIXED_KNOBS = {
     "APPLY_MODE": "off", "BENCH_L": "16", "BENCH_W": "4", "BENCH_INBOX": "4",
-    "BENCH_WIRE16": "1", "BENCH_CWIRE": "1", "BENCH_CC": "0", "TELEM": "0",
-    "BENCH_BLACKBOX": "0", "BENCH_PROFILE": "0",
+    "BENCH_WIRE16": "1", "BENCH_CWIRE": "1", "BENCH_CC": "0", "BENCH_PROFILE": "0",
 }
 
 
@@ -76,6 +90,9 @@ class Knobs:
     sparse: bool
     deferred: bool
     chunks: int
+    telem: bool
+    telem_buckets: int
+    blackbox: bool
 
 
 def read_knobs(environ=None) -> Knobs:
@@ -97,7 +114,11 @@ def read_knobs(environ=None) -> Knobs:
     if sparse and not deferred and "BENCH_SPARSE" in env:
         knob_error(PROG, "BENCH_SPARSE=1 needs BENCH_DEFERRED=1 (the sparse "
                          "scan carry is a deferred-emission form)")
-    return Knobs(C, inner, reps, packed, sparse and deferred, deferred, chunks)
+    telem = env_bool(PROG, "TELEM", "1", environ=env)
+    telem_buckets = env_int(PROG, "TELEM_BUCKETS", "8", lo=2, hi=16, environ=env)
+    blackbox = env_bool(PROG, "BENCH_BLACKBOX", "1", environ=env)
+    return Knobs(C, inner, reps, packed, sparse and deferred, deferred, chunks,
+                 telem, telem_buckets, blackbox)
 
 
 def configs(knobs: Knobs, spec: Spec) -> tuple[RaftConfig, RaftConfig]:
@@ -117,6 +138,9 @@ class BenchRun:
     timed_s: list           # each timed run of ``inner`` rounds, seconds
     state: object           # the dense fleet after the metered pass
     inbox: object
+    peaks: dict = dataclasses.field(default_factory=dict)
+    # on a CUDA device, torch.cuda.max_memory_allocated of each part of the
+    # run (steady, metered, bare, ring), the peak reset before each part
 
 
 def _sync(dev) -> None:
@@ -165,20 +189,91 @@ def run(knobs: Knobs, device=None) -> BenchRun:
     scan.release()
     drive.check_steady(state, commit0, knobs.inner * knobs.reps)
 
-    # observability pass: metered rounds of the dense program
-    met_step = build_metered_round(cfg, spec)
+    peaks, current = {}, ["steady"]
+
+    def part(name):
+        """Close the current part's peak reading and open ``name``'s."""
+        if dev.type == "cuda":
+            _sync(dev)
+            peaks[current[0]] = torch.cuda.max_memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        current[0] = name
+
+    # the observability pass (bench.py:555-690): each probe is the best of
+    # PROBE_PASSES passes of METERED_ROUNDS rounds
+    def timed_passes(fn):
+        ts = []
+        for _ in range(PROBE_PASSES):
+            t0 = time.perf_counter()
+            for _ in range(METERED_ROUNDS):
+                fn()
+            _sync(dev)
+            ts.append(time.perf_counter() - t0)
+        return ts
+
+    part("metered")
+    met_step = build_metered_round(cfg, spec, with_telemetry=knobs.telem)
     metrics = zero_metrics(dev)
-    state, inbox, metrics = met_step(state, inbox, *args, metrics)   # warm
-    _sync(dev)
-    metrics = zero_metrics(dev)
-    obs = []
-    for _ in range(PROBE_PASSES):
-        t0 = time.perf_counter()
-        for _ in range(METERED_ROUNDS):
+    tele = init_telemetry(spec, state, knobs.telem_buckets) if knobs.telem else None
+
+    def met_round():
+        nonlocal state, inbox, metrics, tele
+        if knobs.telem:
+            state, inbox, metrics, tele = met_step(state, inbox, *args, metrics, tele)
+        else:
             state, inbox, metrics = met_step(state, inbox, *args, metrics)
-        _sync(dev)
-        obs.append(time.perf_counter() - t0)
+
+    met_round()                                                    # warm
+    _sync(dev)
+    # the counters cover the timed passes; the telemetry stays cumulative
+    metrics = zero_metrics(dev)
+    obs = timed_passes(met_round)
+    t_obs = min(obs)
     rep = metrics_report(metrics, sum(obs), C, spec.M)
+    extra = {}
+    if knobs.telem or knobs.blackbox:
+        part("bare")
+        bare = build_round(cfg, spec)
+
+        def bare_round():
+            nonlocal state, inbox
+            state, inbox = bare(state, inbox, *args)
+
+        bare_round()                                               # warm
+        t_bare = min(timed_passes(bare_round))
+    if knobs.telem:
+        trep = telemetry_report(tele)
+        # the delta over the bare round covers the whole metered pass (the
+        # counters and the plane), an upper bound on the plane's own cost
+        extra = {
+            "commit_latency_p50_rounds": trep["commit_latency_rounds"]["p50"],
+            "commit_latency_p99_rounds": trep["commit_latency_rounds"]["p99"],
+            "telemetry_overhead_pct": round((t_obs - t_bare) / t_bare * 100, 1),
+            "telemetry": trep,
+        }
+    if knobs.blackbox:
+        # the ring on top of what the metered pass ran: (t_bb - t_obs) is its
+        # marginal cost, over the bare round like the telemetry probe's
+        part("ring")
+        bb_step = build_metered_round(cfg, spec, with_telemetry=knobs.telem,
+                                      with_blackbox=True)
+        bb = init_blackbox(spec, state)
+        bmetrics = zero_metrics(dev)
+
+        def bb_round():
+            nonlocal state, inbox, bmetrics, tele, bb
+            if knobs.telem:
+                state, inbox, bmetrics, tele, bb = bb_step(state, inbox, *args,
+                                                           bmetrics, tele, bb)
+            else:
+                state, inbox, bmetrics, bb = bb_step(state, inbox, *args, bmetrics, None,
+                                                     bb)
+
+        bb_round()                                                 # warm
+        t_bb = min(timed_passes(bb_round))
+        extra["ring_overhead_pct"] = round((t_bb - t_obs) / t_bare * 100, 1)
+        del bb
+    part("end")
 
     bound = cfg.inbox_bound
     st_b = state_bytes_per_group(spec, packed=knobs.packed)
@@ -201,6 +296,7 @@ def run(knobs: Knobs, device=None) -> BenchRun:
         "commits_per_group_per_round": rep["commits_per_group_per_round"],
         "commit_apply_lag_hist": rep["commit_apply_lag_hist"],
         "msgs_dropped": rep["msgs_dropped"],
+        **extra,
         "bytes_per_group_state": st_b,
         "bytes_per_group_wire": wi_b,
         "bytes_per_group_total": st_b + wi_b,
@@ -215,7 +311,7 @@ def run(knobs: Knobs, device=None) -> BenchRun:
         "fleet_chunks": knobs.chunks,
         "wire_int16": bool(cfg.wire_int16),
     }
-    return BenchRun(report, scan, settle_rounds, timed, state, inbox)
+    return BenchRun(report, scan, settle_rounds, timed, state, inbox, peaks)
 
 
 def main(argv=None, device=None) -> int:
@@ -226,9 +322,10 @@ def main(argv=None, device=None) -> int:
                          "BENCH_* knobs)")
     res = run(read_knobs(), device)
     print(json.dumps(res.report), flush=True)
-    if res.state.rng_key.is_cuda:
-        print(f"{PROG}: peak device memory {torch.cuda.max_memory_allocated()} B "
-              "(torch.cuda.max_memory_allocated over the whole run)", file=sys.stderr)
+    if res.peaks:
+        print(f"{PROG}: peak device memory {max(res.peaks.values())} B over the whole "
+              f"run; by part {res.peaks} (torch.cuda.max_memory_allocated, reset "
+              "between parts)", file=sys.stderr)
     return 0
 
 

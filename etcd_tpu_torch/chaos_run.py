@@ -7,8 +7,10 @@ with CHAOS_CRASH > 0 crash-restart faults and with CHAOS_MEMBER > 0
 membership faults, with the safety checks every round
 (etcd_tpu_torch/harness/chaos.py), in fault epochs of 50 rounds and heal
 epochs of 25, then one JSON line with the violation counts, the crash and
-membership counters, the liveness figures and the verdicts of
-``summarize_chaos``. It exits 0 when the run is safe, recovered and lively.
+membership counters, the liveness figures, the flight recorder's timeline
+and telemetry report, with the black box the forensics section, and the
+verdicts of ``summarize_chaos``. It exits 0 when the run is safe, recovered
+and lively.
 
     CHAOS_C=262144 CHAOS_CRASH=0.01 python -m etcd_tpu_torch.chaos_run
     CHAOS_C=1048576 CHAOS_MEMBER=0.05 CHAOS_CRASH=0.005 CHAOS_SNAP_BOOST=200 \
@@ -24,10 +26,13 @@ or none: the broken persist-nothing model, which must trip the
 leader-completeness checker); the membership tier's CHAOS_MEMBER,
 CHAOS_MEMBER_MIX (standard, simple, shrink), CHAOS_INIT_VOTERS (3 under the
 tier, else 0), CHAOS_SNAP_BOOST and CHAOS_MEMBER_BOOST (1 = uniform crash
-scheduling) and CHAOS_CONFIG_AWARE (0: the config-blind checkers). The
-membership tier runs on the int32 wire (its words use bits 16-20): an
-explicit CHAOS_WIRE16=1 beside it exits 2. The tiers the port does not run
-yet exit 2 unless left off: TELEM=0, CHAOS_LEASE=0, CHAOS_BLACKBOX=0,
+scheduling) and CHAOS_CONFIG_AWARE (0: the config-blind checkers); the
+telemetry plane's TELEM (1), TELEM_BUCKETS (8, in 2..16) and TELEM_EVERY
+(1: a timeline row at every epoch boundary); the black box's CHAOS_BLACKBOX
+(0), CHAOS_BLACKBOX_K (4 groups decoded) and CHAOS_BLACKBOX_WINDOW (32
+rounds, in 2..256). The membership tier runs on the int32 wire (its words
+use bits 16-20): an explicit CHAOS_WIRE16=1 beside it exits 2. The tiers
+the port does not run yet exit 2 unless left off: CHAOS_LEASE=0,
 APPLY_KEYS=0, CHAOS_PRNG=threefry, and ``--preflight``.
 """
 from __future__ import annotations
@@ -49,8 +54,7 @@ PROG = "chaos_run"
 EPOCH_LEN, HEAL_LEN = 50, 25
 
 # knobs of chaos_run.py whose tier the port does not run: only "off" is taken
-OFF_KNOBS = {"TELEM": "0", "CHAOS_LEASE": "0", "CHAOS_BLACKBOX": "0",
-             "APPLY_KEYS": "0", "CHAOS_PRNG": "threefry"}
+OFF_KNOBS = {"CHAOS_LEASE": "0", "APPLY_KEYS": "0", "CHAOS_PRNG": "threefry"}
 M = 5      # chaos_run.py's member count
 
 
@@ -89,6 +93,15 @@ def read_knobs(environ=None, on_card: bool = True) -> dict:
     k["crash"] = crash if k["crash_p"] > 0 else None
     k["seed"] = env_int(PROG, "CHAOS_SEED", "0", environ=env)
     k["config_aware"] = env_bool(PROG, "CHAOS_CONFIG_AWARE", "1", environ=env)
+    # the telemetry plane and flight recorder (on by default), the black box
+    # (off: its ring is a [W, M, C] int32 buffer on the device)
+    k["telemetry"] = env_bool(PROG, "TELEM", "1", environ=env)
+    k["telemetry_buckets"] = env_int(PROG, "TELEM_BUCKETS", "8", 2, environ=env, hi=16)
+    k["telemetry_every"] = env_int(PROG, "TELEM_EVERY", "1", 1, environ=env)
+    k["blackbox"] = env_bool(PROG, "CHAOS_BLACKBOX", "0", environ=env)
+    k["blackbox_k"] = env_int(PROG, "CHAOS_BLACKBOX_K", "4", 1, environ=env)
+    k["blackbox_window"] = env_int(PROG, "CHAOS_BLACKBOX_WINDOW", "32", 2, environ=env,
+                                   hi=256)
     k["sync"] = env_bool(PROG, "CHAOS_SYNC", "0", environ=env)
     wire16 = env_bool(PROG, "CHAOS_WIRE16", "1", environ=env)
     if member_on and "CHAOS_WIRE16" in env and wire16:
@@ -127,12 +140,16 @@ def spec_and_config(k: dict) -> tuple[Spec, RaftConfig]:
     return spec, cfg
 
 
+PLANE_KNOBS = ("telemetry", "telemetry_buckets", "telemetry_every", "blackbox",
+               "blackbox_window", "blackbox_k")
+
+
 def fault_kwargs(k: dict) -> dict:
-    """run_chaos's fault-mix arguments at the knobs ``k``."""
+    """run_chaos's fault-mix and plane arguments at the knobs ``k``."""
     return dict(seed=k["seed"], drop_p=k["drop_p"], delay_p=k["delay_p"],
                 partition_p=k["partition_p"], crash_p=k["crash_p"], crash=k["crash"],
                 member_p=k["member_p"], member=k["member"],
-                config_aware=k["config_aware"])
+                config_aware=k["config_aware"], **{n: k[n] for n in PLANE_KNOBS})
 
 
 def run(k: dict, device=None, end=None) -> dict:

@@ -30,8 +30,12 @@ loop runs on the device over a fleet of C groups:
 
 The draws are the JAX program's threefry draws, bit for bit, so the port's
 epoch equals the JAX epoch on every leaf. The rounds of an epoch make no
-host sync; the host reads the counters at epoch boundaries only. The
-telemetry and black-box planes are not ported: asking for them raises.
+host sync; the host reads the counters at epoch boundaries only. Two
+read-only planes can ride the epoch beside the fleet: the telemetry plane
+(models/telemetry.py; ``run_chaos`` turns it into a flight recorder with one
+timeline row per epoch boundary) and the black-box event ring
+(models/blackbox.py; each group's ring freezes at its first violation, and
+the report's ``forensics`` decodes the first offenders' rings).
 """
 from __future__ import annotations
 
@@ -39,6 +43,16 @@ import dataclasses
 
 import torch
 
+from etcd_tpu_torch.models.blackbox import (
+    DEFAULT_WINDOW,
+    VIOLATION_BIT_NAMES,
+    EventRing,
+    blackbox_update,
+    forensics_report,
+    init_blackbox,
+    msg_activity,
+    snapshot_pre,
+)
 from etcd_tpu_torch.models.confchange import encode
 from etcd_tpu_torch.models.engine import (
     build_round,
@@ -55,6 +69,14 @@ from etcd_tpu_torch.models.metrics import (
     zero_crash_metrics,
 )
 from etcd_tpu_torch.models.state import NodeState
+from etcd_tpu_torch.models.telemetry import (
+    DEFAULT_BUCKETS,
+    FleetTelemetry,
+    flight_record,
+    init_telemetry,
+    telemetry_report,
+    telemetry_update,
+)
 from etcd_tpu_torch.parallel.mesh import CapturedStep
 from etcd_tpu_torch.types import (
     CC_ADD_LEARNER,
@@ -76,11 +98,11 @@ VIOLATION_KEYS = (
     "multi_leader", "hash_mismatch", "commit_regress",
     "lost_commit", "log_divergence", "term_regress",
 )
+# the black box's per-group violation bitmask sets bit i for VIOLATION_KEYS[i]
+assert VIOLATION_KEYS == VIOLATION_BIT_NAMES
 
 # delayed messages held per sender row (see HeldSparse)
 HELD_SLOTS = 3
-
-_UNPORTED_TIERS = ("with_telemetry", "with_blackbox")
 
 
 @dataclasses.dataclass
@@ -105,10 +127,33 @@ def _count(mask: torch.Tensor) -> torch.Tensor:
     return mask.sum().to(torch.int32)
 
 
+@dataclasses.dataclass
+class BlackBox(TensorStruct):
+    """The forensics plane an epoch carries: the event ring, each group's
+    violation kinds as an int32 [C] bitmask in VIOLATION_KEYS bit order,
+    and the round of its first violation (int32 [C], -1 for none), where
+    its ring freezes."""
+    ring: EventRing
+    viol_groups: torch.Tensor
+    viol_round: torch.Tensor
+
+
+def empty_blackbox(spec: Spec, state: NodeState,
+                   window: int = DEFAULT_WINDOW) -> BlackBox:
+    C = state.term.shape[-1]
+    dev = state.term.device
+    return BlackBox(ring=init_blackbox(spec, state, window=window),
+                    viol_groups=torch.zeros((C,), dtype=torch.int32, device=dev),
+                    viol_round=torch.full((C,), -1, dtype=torch.int32, device=dev))
+
+
 def check_invariants(state: NodeState, prev_commit: torch.Tensor,
-                     viol: Violations, exempt=None) -> Violations:
+                     viol: Violations, exempt=None, with_masks: bool = False):
     """One round's checker pass over [M, C] leaves; ``exempt`` ([M, C]
-    bool or None) leaves nodes out of the commit-monotonicity check."""
+    bool or None) leaves nodes out of the commit-monotonicity check.
+    ``with_masks`` also returns the per-group [C] bool masks (multi_leader,
+    hash_mismatch, commit_regress) the forensics plane keeps, from the same
+    intermediates the counters sum."""
     M = state.role.shape[0]
     is_lead = state.role == ROLE_LEADER
     iu, ju = torch.triu_indices(M, M, 1, device=is_lead.device)
@@ -119,11 +164,14 @@ def check_invariants(state: NodeState, prev_commit: torch.Tensor,
     regress = state.commit < prev_commit
     if exempt is not None:
         regress = regress & ~exempt
-    return viol.replace(
+    viol = viol.replace(
         multi_leader=viol.multi_leader + _count(both_lead),
         hash_mismatch=viol.hash_mismatch + _count(hash_mm),
         commit_regress=viol.commit_regress + _count(regress),
     )
+    if not with_masks:
+        return viol
+    return viol, (both_lead.any(0), hash_mm.any(0), regress.any(0))
 
 
 @dataclasses.dataclass
@@ -248,7 +296,7 @@ def refresh_ref_config(state: NodeState, crash: CrashState) -> CrashState:
 
 
 def check_recovery_invariants(spec: Spec, state: NodeState, crash: CrashState,
-                              viol: Violations, config_aware):
+                              viol: Violations, config_aware, with_masks: bool = False):
     """The recovery checkers of one round, counted into ``viol``; returns
     (viol, crash) with the reference config, watermark and term baseline
     refreshed (etcd_tpu/harness/chaos.py check_recovery_invariants).
@@ -265,10 +313,12 @@ def check_recovery_invariants(spec: Spec, state: NodeState, crash: CrashState,
     ``config_aware`` (a 0-dim bool tensor): False selects the
     deliberately config-blind variant, a static majority of all M member
     slots with every slot tracked, which fires on a remove-voter schedule
-    the honest checker accepts."""
+    the honest checker accepts. ``with_masks`` also returns the per-group
+    [C] bool masks (lost_commit, log_divergence, term_regress) for the
+    forensics plane: (viol, crash, masks)."""
     M = spec.M
     crash = refresh_ref_config(state, crash)
-    t_reg = _count(state.term < crash.prev_term)
+    t_reg_mask = state.term < crash.prev_term
     wm = torch.maximum(crash.watermark, state.commit.amax(0))      # [C]
     holders = state.last_index >= wm                               # [M, C]
 
@@ -298,11 +348,14 @@ def check_recovery_invariants(spec: Spec, state: NodeState, crash: CrashState,
     iu, ju = torch.triu_indices(M, M, 1, device=mc.device)
     diverged = (t_mc[iu] != t_mc[ju]) & can_read[iu] & can_read[ju]
     viol = viol.replace(
-        term_regress=viol.term_regress + t_reg,
+        term_regress=viol.term_regress + _count(t_reg_mask),
         lost_commit=viol.lost_commit + _count(lost),
         log_divergence=viol.log_divergence + _count(diverged),
     )
-    return viol, crash.replace(watermark=wm, prev_term=state.term.clone())
+    crash = crash.replace(watermark=wm, prev_term=state.term.clone())
+    if not with_masks:
+        return viol, crash
+    return viol, crash, (lost, diverged.any(0), t_reg_mask.any(0))
 
 
 def member_palette(spec: Spec, mix: str = "standard", device=None) -> torch.Tensor:
@@ -387,7 +440,8 @@ class Carry(TensorStruct):
     previous round's commit indexes; and the round's fixed inputs
     (proposals, the network fault probabilities, and under crash or
     membership faults the knobs: crash_p, down_rounds, keep_log,
-    config_aware, member_p, palette, snap_boost, member_boost)."""
+    config_aware, member_p, palette, snap_boost, member_boost), and the
+    planes' carries, None where a plane is off."""
     state: NodeState
     inbox: Msg
     held: HeldSparse | None
@@ -401,6 +455,8 @@ class Carry(TensorStruct):
     prop_data: torch.Tensor
     probs: tuple               # float32 [] drop, delay, partition
     knobs: tuple
+    tele: FleetTelemetry | None
+    bb: BlackBox | None
 
 
 KNOB_NAMES = ("crash_p", "down_rounds", "keep_log", "config_aware", "member_p",
@@ -413,14 +469,15 @@ def pre_round(cfg: RaftConfig, spec: Spec, c: Carry, sample: bool, with_crash: b
     run the down-timers, with ``sample`` kill fresh nodes (targeted_crash_probs,
     then crash_restart_fleet into the fleet's own leaves), silence every down
     node's in-flight traffic and refresh the durable floor. Returns (state,
-    inbox, held, crash, key, hit, alive); hit and alive are None without
-    crashes (the JAX epoch's pre_round)."""
+    inbox, held, crash, key, hit, alive, restarted); hit, alive and the
+    restarts completed this round (bool [M, C]) are None without crashes
+    (the JAX epoch's pre_round)."""
     state, inbox, held, crash, key = c.state, c.inbox, c.held, c.crash, c.key
     if not with_crash:
-        return state, inbox, held, crash, key, None, None
+        return state, inbox, held, crash, key, None, None, None
     crash_p, down_rounds, keep_log, _, _, _, snap_boost, member_boost = c.knobs
     down = torch.clamp_min(crash.down - 1, 0)
-    restarted = _count((crash.down > 0) & (down == 0))
+    rst = (crash.down > 0) & (down == 0)
     m = crash.metrics
     hit = None
     if sample:
@@ -454,8 +511,8 @@ def pre_round(cfg: RaftConfig, spec: Spec, c: Carry, sample: bool, with_crash: b
         held = held.replace(idx=torch.where(hit.unsqueeze(1), -1, held.idx))
     crash = crash.replace(
         stable=state.last_index.clone(), down=down,
-        metrics=m.replace(restarts_completed=m.restarts_completed + restarted))
-    return state, inbox, held, crash, key, hit, down == 0
+        metrics=m.replace(restarts_completed=m.restarts_completed + _count(rst)))
+    return state, inbox, held, crash, key, hit, down == 0, rst
 
 
 def inject_member(c: Carry, state: NodeState, crash: CrashState, key, alive, zp):
@@ -497,33 +554,64 @@ def _mask_down(keep, pl, dt, alive):
             torch.where(alive, pl, 0), dt & alive)
 
 
-def _config_of(state: NodeState, with_recovery: bool):
-    """The applied config masks before the round step (copies: a chunked
-    round writes into the state it is given)."""
-    if not with_recovery:
-        return None
-    return tuple(getattr(state, n).clone()
-                 for n in ("voters", "voters_out", "learners", "learners_next"))
-
-
 def _post_checks(spec: Spec, c: Carry, pre, state: NodeState, crash, hit,
-                 with_recovery: bool):
+                 with_recovery: bool, with_blackbox: bool):
     """The round's checkers and the count of applied config transitions
-    (``pre`` is the config after pre_round, so crash rewinds never count as
-    transitions). Returns (crash, viol)."""
-    viol = check_invariants(state, c.prev_commit, c.viol, exempt=hit)
+    (``pre`` is the snapshot after pre_round, so crash rewinds never count
+    as transitions). Returns (crash, viol, gmask): with the black box on,
+    gmask is the round's per-group int32 [C] violation bitmask
+    (VIOLATION_KEYS bit order), else None."""
+    masks = []
+    viol = check_invariants(state, c.prev_commit, c.viol, exempt=hit,
+                            with_masks=with_blackbox)
+    if with_blackbox:
+        viol, found = viol
+        masks += found
     if with_recovery:
-        pv, pvo, pl, pln = pre
-        ch = ((pv != state.voters) | (pvo != state.voters_out)
-              | (pl != state.learners) | (pln != state.learners_next)).any(1)
-        was_j, now_j = pvo.any(1), state.voters_out.any(1)
+        ch = ((pre.voters != state.voters) | (pre.voters_out != state.voters_out)
+              | (pre.learners != state.learners)
+              | (pre.learners_next != state.learners_next)).any(1)
+        was_j, now_j = pre.voters_out.any(1), state.voters_out.any(1)
         m = crash.metrics
         crash = crash.replace(metrics=m.replace(
             conf_changes_applied=m.conf_changes_applied + _count(ch),
             joint_entered=m.joint_entered + _count(~was_j & now_j),
             joint_left=m.joint_left + _count(was_j & ~now_j)))
-        viol, crash = check_recovery_invariants(spec, state, crash, viol, c.knobs[3])
-    return crash, viol
+        out = check_recovery_invariants(spec, state, crash, viol, c.knobs[3],
+                                        with_masks=with_blackbox)
+        viol, crash = out[:2]
+        if with_blackbox:
+            masks += out[2]
+    gmask = None
+    if with_blackbox:
+        gmask = torch.zeros_like(c.bb.viol_groups)
+        for bit, mask in enumerate(masks):
+            gmask = gmask | (mask.to(torch.int32) << bit)
+    return crash, viol, gmask
+
+
+def _plane_steps(spec: Spec, c: Carry, pre, state: NodeState, recv, out, hit,
+                 alive, rst, gmask):
+    """The planes' passes of one round (read-only; a plane that is off
+    stays None). ``pre`` is the snapshot after pre_round, so a crash rewind
+    never reads as a role or applied transition; ``recv`` the receive side
+    of the inbox the round consumed, ``out`` the wire it emitted. The ring
+    records this round's words in groups that had not violated before it,
+    then the round's violations fold into the first-violation bookkeeping,
+    so a group's ring keeps the W rounds that end at its violation."""
+    down = None if alive is None else ~alive
+    tele, bb = c.tele, c.bb
+    if tele is not None:
+        tele = telemetry_update(spec, tele, pre, state, restarted=rst, down=down)
+    if bb is not None:
+        r = bb.ring.round
+        ring = blackbox_update(spec, bb.ring, pre, state, inbox=recv, outbox=out,
+                               crashed=hit, restarted=rst, down=down,
+                               write_mask=bb.viol_round < 0)
+        fresh = (bb.viol_round < 0) & (gmask != 0)
+        bb = BlackBox(ring=ring, viol_groups=bb.viol_groups | gmask,
+                      viol_round=torch.where(fresh, r, bb.viol_round))
+    return tele, bb
 
 
 def build_chaos_epoch(cfg: RaftConfig, spec: Spec, rounds: int,
@@ -534,21 +622,24 @@ def build_chaos_epoch(cfg: RaftConfig, spec: Spec, rounds: int,
                       graph: bool = True, graph_pool=None):
     """One chaos epoch: ``rounds`` lockstep rounds of faulted traffic with
     the checks after every round (etcd_tpu/harness/chaos.py
-    build_chaos_epoch, without the telemetry and black-box planes).
+    build_chaos_epoch).
 
     Returns fn(state, inbox, held, crash, key, prop_len, prop_data, viol,
-    drop_p, delay_p, partition_p, crash_p, down_rounds, keep_log,
+    tele, bb, drop_p, delay_p, partition_p, crash_p, down_rounds, keep_log,
     config_aware, member_p, palette, snap_boost, member_boost) -> (state,
-    inbox, held, crash, key, viol, commits_delta). The probabilities and
-    boosts are float32 0-dim tensors, down_rounds int32, keep_log and
-    config_aware bool, palette int32 [P] (member_palette); ``held`` is None
-    without ``with_delay``, and ``crash`` is None and the eight knobs after
-    partition_p are left out without ``with_crash`` and ``with_member``. ``faultless`` is the heal program: it drains the held
-    buffer into the entry inbox once (held wins a slot collision), then
-    runs rounds without network faults or membership injection; with
-    ``with_crash`` its down-timers still run and its checks stay on, but it
-    samples no crash. Every epoch first splits the key into (key, partition
-    key), as the JAX program does.
+    inbox, held, crash, key, viol, tele, bb, commits_delta). The
+    probabilities and boosts are float32 0-dim tensors, down_rounds int32,
+    keep_log and config_aware bool, palette int32 [P] (member_palette);
+    ``held`` is None without ``with_delay``, ``tele`` (a FleetTelemetry) and
+    ``bb`` (a BlackBox) are None without ``with_telemetry`` and
+    ``with_blackbox``, and ``crash`` is None and the eight knobs after
+    partition_p are left out without ``with_crash`` and ``with_member``.
+    ``faultless`` is the heal program: it drains the held buffer into the
+    entry inbox once (held wins a slot collision), then runs rounds without
+    network faults or membership injection; with ``with_crash`` its
+    down-timers still run and its checks stay on, but it samples no crash.
+    Every epoch first splits the key into (key, partition key), as the JAX
+    program does.
 
     A fault round under ``with_crash`` first runs the down-timers, samples
     the crash mask over the whole fleet (targeted_crash_probs over the
@@ -559,8 +650,10 @@ def build_chaos_epoch(cfg: RaftConfig, spec: Spec, rounds: int,
     exchange traffic, tick, nor propose. Under ``with_member`` node 0's
     proposal becomes a palette word with probability member_p per group.
     After the round come check_invariants (crashed nodes exempt from the
-    commit check), the count of applied config transitions, and
-    check_recovery_invariants.
+    commit check), the count of applied config transitions,
+    check_recovery_invariants, and the planes' passes, which read the
+    round and never feed back (models/telemetry.py telemetry_update,
+    models/blackbox.py blackbox_update; the ring is written in place).
 
     On a CUDA device with ``graph`` the round is one CUDA graph
     (``fn.graph``, a parallel/mesh.py CapturedStep; ``graph_pool`` lets
@@ -570,11 +663,8 @@ def build_chaos_epoch(cfg: RaftConfig, spec: Spec, rounds: int,
     then the graph's carry, which the next call overwrites, so a caller that
     keeps them across calls clones them. Otherwise the rounds run eagerly,
     write into the state they are given under ``fleet_chunks`` > 1 or
-    ``with_crash``, and into the inbox under ``fleet_chunks`` > 1, as the
-    JAX program's donated carry does."""
-    for name, on in zip(_UNPORTED_TIERS, (with_telemetry, with_blackbox)):
-        if on:
-            raise NotImplementedError(f"etcd_tpu_torch's chaos epoch has no {name} yet")
+    ``with_crash``, into the inbox under ``fleet_chunks`` > 1, and into the
+    ring, as the JAX program's donated carry does."""
     if cfg.packed_state or cfg.compact_wire:
         raise ValueError(
             "chaos epochs need the unpacked fleet and the dense wire; "
@@ -584,12 +674,13 @@ def build_chaos_epoch(cfg: RaftConfig, spec: Spec, rounds: int,
     # the recovery bookkeeping serves both fault classes: crashes lose
     # state, membership changes move the quorum the checkers count against
     with_recovery = with_crash or with_member
+    need_pre = with_recovery or with_telemetry or with_blackbox
 
     def fault_round(c: Carry) -> Carry:
         C = c.prev_commit.shape[-1]
-        state, inbox, held, crash, key, hit, alive = pre_round(cfg, spec, c, True,
-                                                               with_crash, with_delay)
-        pre = _config_of(state, with_recovery)
+        state, inbox, held, crash, key, hit, alive, rst = pre_round(
+            cfg, spec, c, True, with_crash, with_delay)
+        pre = snapshot_pre(state) if need_pre else None
         zp, z2, no, dt = _quiet_inputs(spec, C, c.key.device, tick)
         pd, pt = c.prop_data, zp
         if with_member:
@@ -604,35 +695,49 @@ def build_chaos_epoch(cfg: RaftConfig, spec: Spec, rounds: int,
         keep = ((side.unsqueeze(1) == side.unsqueeze(0)) | ~parted)
         keep = keep & prng.bernoulli(kd, 1.0 - drop_p, (M, M, C))
         keep, pl, dt = _mask_down(keep, c.prop_len, dt, alive)
+        # the receive side before the round consumes (and, in chunks,
+        # overwrites) the inbox
+        recv = msg_activity(spec, inbox, "recv") if with_blackbox else None
         state, out = round_fn(state, inbox, pl, pd, pt, z2, no, dt, keep)
+        nxt = out
         if with_delay:
             delay = prng.bernoulli(kl, delay_p, (M, K * M, C)) & (out.type != 0)
-            out, held = _merge_delayed(spec, out, held, delay)
-        crash, viol = _post_checks(spec, c, pre, state, crash, hit, with_recovery)
-        return c.replace(state=state, inbox=out, held=held, crash=crash, key=key,
-                         viol=viol, prev_commit=state.commit.clone())
+            nxt, held = _merge_delayed(spec, out, held, delay)
+        crash, viol, gmask = _post_checks(spec, c, pre, state, crash, hit,
+                                          with_recovery, with_blackbox)
+        # ``out``, before the delay split, is the round's send side
+        tele, bb = _plane_steps(spec, c, pre, state, recv, out, hit, alive, rst, gmask)
+        return c.replace(state=state, inbox=nxt, held=held, crash=crash, key=key,
+                         viol=viol, prev_commit=state.commit.clone(), tele=tele, bb=bb)
 
     def heal_round(c: Carry) -> Carry:
         C = c.prev_commit.shape[-1]
-        state, inbox, _, crash, _, _, alive = pre_round(cfg, spec, c, False, with_crash,
-                                                        with_delay)
-        pre = _config_of(state, with_recovery)
+        state, inbox, _, crash, _, _, alive, rst = pre_round(cfg, spec, c, False,
+                                                             with_crash, with_delay)
+        pre = snapshot_pre(state) if need_pre else None
         zp, z2, no, dt = _quiet_inputs(spec, C, c.key.device, tick)
         keep = torch.ones((M, M, C), dtype=torch.bool, device=c.key.device)
         keep, pl, dt = _mask_down(keep, c.prop_len, dt, alive)
+        recv = msg_activity(spec, inbox, "recv") if with_blackbox else None
         state, out = round_fn(state, inbox, pl, c.prop_data, zp, z2, no, dt, keep)
-        crash, viol = _post_checks(spec, c, pre, state, crash, None, with_recovery)
+        crash, viol, gmask = _post_checks(spec, c, pre, state, crash, None,
+                                          with_recovery, with_blackbox)
+        tele, bb = _plane_steps(spec, c, pre, state, recv, out, None, alive, rst, gmask)
         return c.replace(state=state, inbox=out, crash=crash, viol=viol,
-                         prev_commit=state.commit.clone())
+                         prev_commit=state.commit.clone(), tele=tele, bb=bb)
 
     step = heal_round if faultless else fault_round
 
-    def epoch(state, inbox, held, crash, key, prop_len, prop_data, viol, drop_p,
-              delay_p, partition_p, *knobs):
+    def epoch(state, inbox, held, crash, key, prop_len, prop_data, viol, tele, bb,
+              drop_p, delay_p, partition_p, *knobs):
         dev = state.term.device
         if with_recovery and (crash is None or len(knobs) != len(KNOB_NAMES)):
             raise ValueError(f"crash and membership epochs need the CrashState and "
                              f"the knobs {', '.join(KNOB_NAMES)}")
+        for on, carry, name in ((with_telemetry, tele, "FleetTelemetry"),
+                                (with_blackbox, bb, "BlackBox")):
+            if on and carry is None:
+                raise ValueError(f"this epoch carries a {name}; pass one")
         commit0 = state.commit.to(torch.int64).sum()
         key, pkey = prng.split(key, 2)
         if faultless and with_delay:
@@ -644,7 +749,9 @@ def build_chaos_epoch(cfg: RaftConfig, spec: Spec, rounds: int,
                   period=torch.zeros((), dtype=torch.int64, device=dev), viol=viol,
                   prev_commit=state.commit.clone(), prop_len=prop_len,
                   prop_data=prop_data, probs=(drop_p, delay_p, partition_p),
-                  knobs=knobs if with_recovery else ())
+                  knobs=knobs if with_recovery else (),
+                  tele=tele if with_telemetry else None,
+                  bb=bb if with_blackbox else None)
         run = step
         if dev.type == "cuda" and graph:
             if epoch.graph is None:
@@ -655,7 +762,7 @@ def build_chaos_epoch(cfg: RaftConfig, spec: Spec, rounds: int,
                 c.period.fill_(r // partition_period)
             c = run(c)
         delta = wrap_int32(c.state.commit.to(torch.int64).sum() - commit0)
-        return c.state, c.inbox, c.held, c.crash, c.key, c.viol, delta
+        return c.state, c.inbox, c.held, c.crash, c.key, c.viol, c.tele, c.bb, delta
 
     epoch.graph = None
     return epoch
@@ -706,13 +813,14 @@ def run_chaos(spec: Spec, cfg: RaftConfig, C: int, rounds: int = 200,
               crash: CrashConfig | None = None, member_p: float = 0.0,
               member: MemberChaosConfig | None = None, config_aware: bool = True,
               propose: bool = True, sync_dispatch: bool = False,
-              telemetry: bool = False, blackbox: bool = False, device=None,
-              end=None) -> dict:
+              telemetry: bool = False, telemetry_buckets: int = DEFAULT_BUCKETS,
+              telemetry_every: int = 1, blackbox: bool = False,
+              blackbox_window: int = DEFAULT_WINDOW, blackbox_k: int = 4,
+              device=None, end=None) -> dict:
     """The tester's round loop (tester/cluster_run.go): fault epochs and
     heal epochs in turn, then the WaitHealth loop, which heals in further
     epochs (at most 6) until every group has a leader. Returns the JAX
-    run_chaos report (etcd_tpu/harness/chaos.py run_chaos) without the
-    telemetry and black-box planes, which raise.
+    run_chaos report (etcd_tpu/harness/chaos.py run_chaos).
 
     ``crash_p`` > 0 turns on crash-restart faults with the model ``crash``
     (default CrashConfig: 3-round outages, fsync-lag loss); ``member_p`` > 0
@@ -720,14 +828,23 @@ def run_chaos(spec: Spec, cfg: RaftConfig, C: int, rounds: int = 200,
     ``member.initial_voters`` voters at boot; ``member``'s boosts target the
     crash budget at the snapshot-install and membership windows (boosts of
     1 are uniform); ``config_aware=False`` selects the config-blind
-    recovery checkers. ``end``, a dict, receives the final state, inbox,
-    held buffer, CrashState and key, and the epochs' CUDA graphs
-    (``graphs``: on a CUDA device each round is one replay, see
+    recovery checkers.
+
+    ``telemetry`` rides the telemetry plane (``telemetry_buckets`` pow2
+    buckets) through every epoch: the report gains a ``timeline`` of
+    flight-recorder rows (models/telemetry.py flight_record), one per epoch
+    boundary, or per ``telemetry_every``-th boundary and the last, and a
+    ``telemetry`` report (``{"wrapped": true, "rounds": N}`` if a counter
+    wrapped). ``blackbox`` rides the event ring (``blackbox_window``
+    rounds): the report gains a ``forensics`` section that decodes the
+    rings of the first ``blackbox_k`` violating groups, found on the device.
+    Neither changes a state or wire leaf.
+
+    ``end``, a dict, receives the final state, inbox, held buffer,
+    CrashState, key and plane carries (``tele``, ``bb``), and the epochs'
+    CUDA graphs (``graphs``: on a CUDA device each round is one replay, see
     build_chaos_epoch). ``sync_dispatch`` waits for the card at every epoch
     boundary."""
-    if telemetry or blackbox:
-        raise NotImplementedError(
-            "etcd_tpu_torch's run_chaos has no telemetry or black-box plane yet")
     with_crash = crash_p > 0
     with_member = member_p > 0
     if (with_crash or with_member) and spec.M < 2:
@@ -762,10 +879,14 @@ def run_chaos(spec: Spec, cfg: RaftConfig, C: int, rounds: int = 200,
         # leader wherever leadership lands
         prop_len[0] = 1
         prop_data[0, 0] = 7
+    tele = init_telemetry(spec, state, buckets=telemetry_buckets) if telemetry else None
+    if telemetry_every < 1:
+        raise ValueError(f"telemetry_every must be >= 1, got {telemetry_every}")
+    bb = empty_blackbox(spec, state, window=blackbox_window) if blackbox else None
     # the two epochs never run at once: their graphs share one memory pool
     pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
     kw = dict(with_delay=with_delay, with_crash=with_crash, with_member=with_member,
-              graph_pool=pool)
+              with_telemetry=telemetry, with_blackbox=blackbox, graph_pool=pool)
     chaos = build_chaos_epoch(cfg, spec, epoch_len, False, **kw)
     heal = build_chaos_epoch(cfg, spec, heal_len, True, **kw)
 
@@ -779,19 +900,39 @@ def run_chaos(spec: Spec, cfg: RaftConfig, C: int, rounds: int = 200,
 
     viol = zero_violations(dev)
     commits = []
+    timeline = []
+    rec = {"i": 0, "pending": None}
+
+    def record(kind):
+        # the flight recorder's row at an epoch boundary (one small transfer,
+        # read before the next epoch overwrites a graph's carry); a row that
+        # telemetry_every skips leaves its kind, so the last is never lost
+        if not telemetry:
+            return
+        i = rec["i"]
+        rec["i"] = i + 1
+        if i % telemetry_every:
+            rec["pending"] = kind
+            return
+        rec["pending"] = None
+        timeline.append(flight_record(
+            tele, viol, crash_state.metrics if with_recovery else None, kind=kind))
+
     done = fault_rounds = 0
     while done < rounds:
-        state, inbox, held, crash_state, key, viol, dc = chaos(
-            state, inbox, held, crash_state, key, prop_len, prop_data, viol,
+        state, inbox, held, crash_state, key, viol, tele, bb, dc = chaos(
+            state, inbox, held, crash_state, key, prop_len, prop_data, viol, tele, bb,
             *fault_ops)
         boundary()
         done += epoch_len
         fault_rounds += epoch_len
-        state, inbox, held, crash_state, key, viol, dh = heal(
-            state, inbox, held, crash_state, key, prop_len, prop_data, viol,
+        record("fault")
+        state, inbox, held, crash_state, key, viol, tele, bb, dh = heal(
+            state, inbox, held, crash_state, key, prop_len, prop_data, viol, tele, bb,
             *heal_ops)
         boundary()
         done += heal_len
+        record("heal")
         commits.append((int(dc), int(dh)))
 
     def leaders() -> int:
@@ -800,13 +941,20 @@ def run_chaos(spec: Spec, cfg: RaftConfig, C: int, rounds: int = 200,
     for _ in range(6):
         if leaders() == C:
             break
-        state, inbox, held, crash_state, key, viol, dh = heal(
-            state, inbox, held, crash_state, key, prop_len, prop_data, viol,
+        state, inbox, held, crash_state, key, viol, tele, bb, dh = heal(
+            state, inbox, held, crash_state, key, prop_len, prop_data, viol, tele, bb,
             *heal_ops)
         done += heal_len
+        record("heal")
         commits.append((0, int(dh)))
+    if telemetry and rec["pending"]:
+        # the run ended on a skipped boundary: its row comes last
+        timeline.append(flight_record(
+            tele, viol, crash_state.metrics if with_recovery else None,
+            kind=rec["pending"]))
     if end is not None:
         end.update(state=state, inbox=inbox, held=held, crash=crash_state, key=key,
+                   tele=tele, bb=bb,
                    graphs=[g for g in (chaos.graph, heal.graph) if g is not None])
     rep = {"groups": C, "rounds": done}
     rep.update({k: int(v) for k, v in viol.items()})
@@ -825,6 +973,17 @@ def run_chaos(spec: Spec, cfg: RaftConfig, C: int, rounds: int = 200,
         rep["member_p"] = member_p
         rep["member_mix"] = member_cfg.mix
         rep["initial_voters"] = member_cfg.initial_voters
+    if telemetry:
+        try:
+            rep["telemetry"] = telemetry_report(tele)
+        except OverflowError:
+            # a wrapped int32 counter (a very long soak at a very large C):
+            # the run still reports; the timeline rows flag it as well
+            rep["telemetry"] = {"wrapped": True, "rounds": int(tele.round)}
+        rep["timeline"] = timeline
+    if blackbox:
+        rep["forensics"] = forensics_report(bb.ring, bb.viol_groups, bb.viol_round,
+                                            k=blackbox_k)
     if with_recovery:
         rep["config_aware"] = config_aware
         rep.update(crash_metrics_report(crash_state.metrics))

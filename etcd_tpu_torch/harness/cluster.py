@@ -7,15 +7,23 @@ recover) and the rafttest InteractionEnv verbs (campaign, propose,
 stabilize). All C clusters advance in lockstep; the per-link fault state is
 the engine's keep-mask. Layout: every state leaf is [M, feature..., C], the
 inbox leaves [from, K*to(*E), C], the keep-mask [from, to, C]; accessors
-take (m, c). The telemetry and black-box planes are not ported: asking for
-them raises.
+take (m, c). ``telemetry=True`` and ``blackbox=True`` step the telemetry
+plane (models/telemetry.py) and the black-box event ring
+(models/blackbox.py) beside each round; both only read the state.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from etcd_tpu_torch.models.blackbox import (
+    blackbox_update,
+    init_blackbox,
+    msg_activity,
+    snapshot_pre,
+)
 from etcd_tpu_torch.models.engine import RaftEngine
+from etcd_tpu_torch.models.telemetry import init_telemetry, telemetry_report, telemetry_update
 from etcd_tpu_torch.types import (
     ENT_FIELDS,
     ENTRY_CONF_CHANGE,
@@ -32,9 +40,6 @@ class Cluster:
                  cfg: RaftConfig = RaftConfig(), voters=None, learners=None,
                  seed: int = 0, telemetry: bool = False, blackbox: bool = False,
                  device=None):
-        if telemetry or blackbox:
-            raise NotImplementedError(
-                "etcd_tpu_torch's Cluster has no telemetry or black-box plane yet")
         spec = spec or Spec(M=n_members)
         # the lane padding of the JAX Cluster (2..16 clusters run as 16), so
         # the two fleets hold the same lanes and seeds
@@ -44,6 +49,14 @@ class Cluster:
         learners = self._pad(learners)
         self.eng = RaftEngine(spec, cfg, self._Cp, voters, learners, seed, device)
         self.spec, self.cfg = spec, cfg
+        # the planes read NodeState leaves off the live engine state, which
+        # the packed storage form does not have
+        for on, plane in ((telemetry, "telemetry"), (blackbox, "blackbox")):
+            if on and cfg.packed_state:
+                raise ValueError(f"Cluster {plane} reads the unpacked fleet; "
+                                 "construct with packed_state=False")
+        self.tele = init_telemetry(spec, self.eng.state) if telemetry else None
+        self.bb = init_blackbox(spec, self.eng.state) if blackbox else None
         self._next_ctx = 1
         self._reset_inputs()
 
@@ -133,10 +146,33 @@ class Cluster:
         do_tick = np.zeros((self.spec.M, self._Cp), bool)
         if tick:
             do_tick[:, : self.C] = True
+        planes = self.tele is not None or self.bb is not None
+        pre = snapshot_pre(self.eng.state) if planes else None
+        # the inbox this round consumes is the ring's receive side
+        recv = msg_activity(self.spec, self.eng.inbox, "recv") if self.bb is not None else None
         self.eng.step(prop_len=self._plen, prop_data=self._pdata,
                       prop_type=self._ptype, ri_ctx=self._rictx, do_hup=self._hup,
                       do_tick=do_tick)
+        if self.tele is not None:
+            self.tele = telemetry_update(self.spec, self.tele, pre, self.eng.state)
+        if self.bb is not None:
+            self.bb = blackbox_update(self.spec, self.bb, pre, self.eng.state,
+                                      inbox=recv, outbox=self.eng.inbox)
         self._reset_inputs()
+
+    def reset_telemetry(self) -> None:
+        """Open a fresh telemetry window (the counters are int32 and meant
+        to be reset per window)."""
+        if self.tele is not None:
+            self.tele = init_telemetry(self.spec, self.eng.state)
+
+    def telemetry_report(self) -> dict:
+        """The telemetry report over the real lanes (the padding lanes stay
+        out of the lane aggregates)."""
+        if self.tele is None:
+            raise ValueError("this Cluster has no telemetry plane; construct it "
+                             "with telemetry=True")
+        return telemetry_report(self.tele, groups=self.C)
 
     def tick(self, rounds: int = 1):
         for _ in range(rounds):

@@ -6,8 +6,9 @@ once per report (``metrics_report``). ``CrashMetrics`` are the chaos
 tier's crash and membership counters (``crash_metrics_report``).
 ``fleet_summary`` is the whole-fleet status aggregate. The counters are
 int32 like the JAX package's, so a window must be short enough not to wrap
-(both reports raise if one has). The telemetry and black-box planes are
-not ported yet.
+(both reports raise if one has). ``build_metered_round`` also carries the
+telemetry plane (models/telemetry.py) and the black-box event ring
+(models/blackbox.py) when asked.
 """
 from __future__ import annotations
 
@@ -15,8 +16,10 @@ import dataclasses
 
 import torch
 
+from etcd_tpu_torch.models.blackbox import blackbox_update, msg_activity, snapshot_pre
 from etcd_tpu_torch.models.engine import build_round
 from etcd_tpu_torch.models.state import NodeState, unpack_fleet
+from etcd_tpu_torch.models.telemetry import telemetry_update
 from etcd_tpu_torch.types import ROLE_LEADER, Spec, TensorStruct
 from etcd_tpu_torch.utils.config import RaftConfig
 from etcd_tpu_torch.utils.device import resolve_device
@@ -103,13 +106,15 @@ def build_metered_round(cfg: RaftConfig, spec: Spec,
                         with_blackbox: bool = False):
     """The round with the metric updates after it: fn(state, inbox,
     prop_len, prop_data, prop_type, ri_ctx, do_hup, do_tick, keep_mask,
-    metrics) -> (state, inbox, metrics). State and inbox are the bare
-    round's; under packed_state the counters read unpacked views of the
-    state before and after the round."""
-    for flag, plane in ((with_telemetry, "telemetry"), (with_blackbox, "blackbox")):
-        if flag:
-            raise NotImplementedError(f"etcd_tpu_torch does not implement the "
-                                      f"{plane} plane yet")
+    metrics) -> (state, inbox, metrics). ``with_telemetry`` adds a trailing
+    FleetTelemetry argument and result, ``with_blackbox`` an EventRing
+    after it (the JAX function's positional order; the ring is written in
+    place). State and inbox are the bare round's: the planes only read.
+    Under packed_state the counters and planes read unpacked views of the
+    state before and after the round; the leaves they read of the state
+    before it are copied first, and the ring's receive side is taken from
+    the inbox before the round consumes it, since under fleet_chunks > 1
+    the round writes into both."""
     round_fn = build_round(cfg, spec, with_drop_count=True)
 
     def unp(s):
@@ -118,11 +123,16 @@ def build_metered_round(cfg: RaftConfig, spec: Spec,
     edges = torch.tensor(LAG_BUCKETS, dtype=I32)
 
     def metered(state, inbox, prop_len, prop_data, prop_type, ri_ctx, do_hup,
-                do_tick, keep_mask, metrics: FleetMetrics):
+                do_tick, keep_mask, metrics: FleetMetrics, telemetry=None,
+                blackbox=None):
         pre = unp(state)
         was_leader = pre.role == ROLE_LEADER
-        # copies: under fleet_chunks > 1 the round writes into ``state``
-        commit0, applied0 = pre.commit.clone(), pre.applied.clone()
+        if with_telemetry or with_blackbox:
+            pre = snapshot_pre(pre)
+            commit0, applied0 = pre.commit, pre.applied
+        else:
+            commit0, applied0 = pre.commit.clone(), pre.applied.clone()
+        recv = msg_activity(spec, inbox, "recv") if with_blackbox else None
         state, nxt, dropped = round_fn(state, inbox, prop_len, prop_data,
                                        prop_type, ri_ctx, do_hup, do_tick,
                                        keep_mask)
@@ -143,7 +153,14 @@ def build_metered_round(cfg: RaftConfig, spec: Spec,
             msgs_dropped=metrics.msgs_dropped + dropped.to(I32),
             lag_hist=metrics.lag_hist + torch.cat([cum, total]).to(I32),
         )
-        return state, nxt, metrics
+        out = (state, nxt, metrics)
+        if with_telemetry:
+            out += (telemetry_update(spec, telemetry, pre, post),)
+        if with_blackbox:
+            # the consumed wire is the round's receive side, the fresh wire
+            # its send side
+            out += (blackbox_update(spec, blackbox, pre, post, inbox=recv, outbox=nxt),)
+        return out
 
     return metered
 

@@ -13,12 +13,14 @@ def knob_error(prog: str, msg: str):
 
 
 def env_int(prog: str, name: str, default: str, lo: int | None = None,
-            environ=None) -> int:
+            environ=None, hi: int | None = None) -> int:
     raw = (os.environ if environ is None else environ).get(name, default)
     try:
         v = int(raw)
     except ValueError:
         knob_error(prog, f"{name}={raw!r} is not an integer")
+    if hi is not None and (v > hi or (lo is not None and v < lo)):
+        knob_error(prog, f"{name}={raw} outside [{lo}, {hi}]")
     if lo is not None and v < lo:
         knob_error(prog, f"{name}={raw} is below {lo}")
     return v

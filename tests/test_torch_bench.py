@@ -9,8 +9,8 @@
 * The steady round is CUDA-graph capturable: it makes no host sync and
   builds no tensor from host data (checked on the CPU at the dispatcher).
 * ``python -m etcd_tpu_torch.bench``'s main, run on the CPU at a tiny C,
-  prints one JSON line with bench.py's keys (less the telemetry and
-  black-box planes' keys), and refuses what it cannot run with exit 2.
+  prints one JSON line with bench.py's keys at its defaults (the telemetry
+  and black-box planes on), and refuses what it cannot run with exit 2.
 All leaves and counters are integers: exact equality, no tolerance.
 """
 import ast
@@ -39,6 +39,8 @@ from etcd_tpu_torch.models import engine as teng
 from etcd_tpu_torch.models import metrics as tmetrics
 from etcd_tpu_torch.models.state import pack_fleet
 from etcd_tpu_torch.parallel.mesh import build_scan_rounds
+
+from torch_jax_memory import release_jax_memory  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 C = 8
@@ -220,17 +222,22 @@ def test_steady_round_is_graph_capturable(start):
 
 
 def _bench_keys() -> set:
-    """The keys of bench.py's JSON line, read from its source: the literal
-    dicts in its main that hold "metric" or "bytes_per_group_state" (the telemetry and
-    black-box planes' keys live in a separate dict)."""
+    """The keys of bench.py's JSON line at its defaults (TELEM=1,
+    BENCH_BLACKBOX=1), read from its source: the literal dicts in its main
+    that hold "metric" or "bytes_per_group_state", the telemetry dict (the
+    one that holds "telemetry_overhead_pct") and the ring's key set on it."""
     tree = ast.parse((ROOT / "bench.py").read_text())
     main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
     keys = set()
     for node in ast.walk(main):
         if isinstance(node, ast.Dict):
             ks = {k.value for k in node.keys if isinstance(k, ast.Constant)}
-            if "metric" in ks or "bytes_per_group_state" in ks:
+            if {"metric", "bytes_per_group_state", "telemetry_overhead_pct"} & ks:
                 keys |= ks
+        if isinstance(node, ast.Assign) and isinstance(node.targets[0], ast.Subscript):
+            t = node.targets[0]
+            if isinstance(t.value, ast.Name) and t.value.id == "telemetry_extra":
+                keys.add(t.slice.value)
     return keys
 
 
@@ -251,8 +258,8 @@ def test_bench_main_prints_bench_py_keys(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("env, argv, match", [
-    ({"TELEM": "1"}, [], "TELEM"),
-    ({"BENCH_BLACKBOX": "1"}, [], "BENCH_BLACKBOX"),
+    ({"TELEM_BUCKETS": "17"}, [], "TELEM"),
+    ({"BENCH_BLACKBOX": "yes"}, [], "BENCH_BLACKBOX"),
     ({"BENCH_WIRE16": "0"}, [], "BENCH_WIRE16"),
     ({"BENCH_SPARSE": "1", "BENCH_DEFERRED": "0"}, [], "BENCH_DEFERRED"),
     ({"BENCH_C": "0"}, [], "BENCH_C"),

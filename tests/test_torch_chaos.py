@@ -10,7 +10,9 @@
   tests/test_torch_member.py compare those with JAX);
 * ``python -m etcd_tpu_torch.chaos_run``: its JSON keys (read from the JAX
   driver's source), its defaults, and its exit 2 on the knobs of the tiers
-  the port does not run (the crash and membership tiers' knobs are read);
+  the port does not run and on bad values (the crash and membership tiers'
+  and the planes' knobs are read; tests/test_torch_blackbox.py holds the
+  planes against JAX);
 * slow: the same comparison at C = 64 for 75 rounds under tests/test_chaos.py's
   SPEC/CFG (K = 4, E = 2, int32 wire, no inbox bound).
 """
@@ -35,6 +37,8 @@ from etcd_tpu_torch.convert import from_numpy, to_numpy
 from etcd_tpu_torch.harness import chaos as tch
 from etcd_tpu_torch.types import Msg, Spec
 from etcd_tpu_torch.utils.config import RaftConfig
+
+from torch_jax_memory import release_jax_memory  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -255,7 +259,7 @@ def test_epoch_rounds_make_no_host_sync(faultless):
     watch = _HostTraffic()
     with watch:
         out = epoch(end["state"], end["inbox"], end["held"], None, end["key"], prop_len,
-                    prop_data, tch.zero_violations("cpu"), *probs)
+                    prop_data, tch.zero_violations("cpu"), None, None, *probs)
     assert not watch.seen, dict(watch.seen)
     assert out[0].term.shape == (5, 8)
 
@@ -287,7 +291,8 @@ def test_crash_and_member_epochs_make_no_host_sync(tier, faultless):
     watch = _HostTraffic()
     with watch:
         out = epoch(end["state"], end["inbox"], end["held"], end["crash"], end["key"],
-                    prop_len, prop_data, tch.zero_violations("cpu"), *probs, *knobs)
+                    prop_len, prop_data, tch.zero_violations("cpu"), None, None, *probs,
+                    *knobs)
     assert not watch.seen, dict(watch.seen)
     assert out[3].down.shape == (5, 8)
     assert (prop_data == 7).all() and prop_len[0].eq(1).all()
@@ -296,22 +301,36 @@ def test_crash_and_member_epochs_make_no_host_sync(tier, faultless):
 @pytest.mark.parametrize("tier", ["with_crash", "with_member", "with_telemetry",
                                   "with_blackbox"])
 def test_chaos_epoch_refuses_the_tiers_not_ported(tier):
-    """The telemetry and black-box planes are refused; the crash and
-    membership tiers, ported since, build."""
+    """Every tier was refused until it was ported: the crash and membership
+    tiers and the telemetry and black-box planes now build; an epoch with a
+    plane refuses to run without the plane's carry."""
     spec, cfg = chaos_geometry()
-    if tier in ("with_crash", "with_member"):
-        assert callable(tch.build_chaos_epoch(cfg, spec, 2, **{tier: True}))
-        return
-    with pytest.raises(NotImplementedError, match=tier):
-        tch.build_chaos_epoch(cfg, spec, 2, **{tier: True})
+    epoch = tch.build_chaos_epoch(cfg, spec, 2, **{tier: True})
+    assert callable(epoch)
+    if tier in ("with_telemetry", "with_blackbox"):
+        st = tch.init_fleet(spec, 2, device="cpu")
+        ib = tch.empty_inbox(spec, 2, cfg.wire_int16, device="cpu")
+        z = torch.zeros((), dtype=torch.float32)
+        with pytest.raises(ValueError, match="pass one"):
+            epoch(st, ib, tch.empty_held(spec, 2, cfg.wire_int16, "cpu"), None,
+                  tch.prng.prng_key(0, "cpu"), torch.zeros((5, 2), dtype=torch.int32),
+                  torch.zeros((5, 1, 2), dtype=torch.int32), tch.zero_violations("cpu"),
+                  None, None, z, z, z)
 
 
 def test_run_chaos_refuses_the_tiers_not_ported_and_the_diet_forms():
-    """The planes and the diet forms are refused; the crash tier runs, and
-    the membership tier is refused only on the int16 wire, as in JAX."""
+    """The diet forms are refused; the planes (each with the JAX checks of
+    its size knobs) and the crash tier run, and the membership tier is
+    refused only on the int16 wire, as in JAX."""
     spec, cfg = chaos_geometry()
-    for kw in (dict(telemetry=True), dict(blackbox=True)):
-        with pytest.raises(NotImplementedError):
+    for kw, key in ((dict(telemetry=True), "timeline"), (dict(blackbox=True), "forensics")):
+        rep = tch.run_chaos(spec, cfg, C=2, rounds=1, epoch_len=1, heal_len=1,
+                            device="cpu", **kw)
+        assert key in rep
+    for kw, match in ((dict(telemetry=True, telemetry_buckets=17), "buckets"),
+                      (dict(telemetry=True, telemetry_every=0), "telemetry_every"),
+                      (dict(blackbox=True, blackbox_window=1), "window")):
+        with pytest.raises(ValueError, match=match):
             tch.run_chaos(spec, cfg, C=2, rounds=1, device="cpu", **kw)
     rep = tch.run_chaos(spec, cfg, C=2, rounds=1, epoch_len=1, heal_len=1, crash_p=0.1,
                         device="cpu")
@@ -328,10 +347,11 @@ def test_run_chaos_refuses_the_tiers_not_ported_and_the_diet_forms():
 
 
 def _jax_driver_keys() -> set:
-    """The JSON keys of chaos_run.py's network tier with the lease and KV
-    tiers off: run_chaos's report literal, summarize_chaos's result literal
-    (etcd_tpu/harness/chaos.py) and the keys chaos_run.py sets itself, less
-    the error keys of a failed tier."""
+    """The JSON keys of chaos_run.py's network tier at its defaults with the
+    lease and KV tiers off: run_chaos's report literal, summarize_chaos's
+    result literal (etcd_tpu/harness/chaos.py), the keys chaos_run.py sets
+    itself, less the error keys of a failed tier, and the keys of the
+    telemetry plane, which TELEM=1 (chaos_run.py's default) adds."""
     keys = set()
     src = ast.parse((ROOT / "etcd_tpu/harness/chaos.py").read_text())
     for fn in src.body:
@@ -349,7 +369,8 @@ def _jax_driver_keys() -> set:
             if isinstance(t.value, ast.Name) and t.value.id == "rep" \
                     and isinstance(t.slice, ast.Constant):
                 keys.add(t.slice.value)
-    return keys - {"lease_tier_error", "kv_plane", "kv_plane_error"}
+    return (keys - {"lease_tier_error", "kv_plane", "kv_plane_error"}) | {"telemetry",
+                                                                         "timeline"}
 
 
 def test_driver_json_keys_are_chaos_runs(monkeypatch, capsys):
@@ -385,9 +406,15 @@ def test_driver_defaults_are_chaos_runs():
 
 
 EXIT_2 = {
-    "TELEM=1": {"TELEM": "1"},
+    "TELEM=yes": {"TELEM": "yes"},
+    "TELEM_BUCKETS=17": {"TELEM_BUCKETS": "17"},
+    "TELEM_BUCKETS=1": {"TELEM_BUCKETS": "1"},
+    "TELEM_EVERY=0": {"TELEM_EVERY": "0"},
     "CHAOS_LEASE=1": {"CHAOS_LEASE": "1"},
-    "CHAOS_BLACKBOX=1": {"CHAOS_BLACKBOX": "1"},
+    "CHAOS_BLACKBOX=2": {"CHAOS_BLACKBOX": "2"},
+    "CHAOS_BLACKBOX_K=0": {"CHAOS_BLACKBOX_K": "0"},
+    "CHAOS_BLACKBOX_WINDOW=1": {"CHAOS_BLACKBOX_WINDOW": "1"},
+    "CHAOS_BLACKBOX_WINDOW=257": {"CHAOS_BLACKBOX_WINDOW": "257"},
     "APPLY_KEYS=64": {"APPLY_KEYS": "64"},
     "CHAOS_PRNG=rbg": {"CHAOS_PRNG": "rbg"},
     "CHAOS_DROP=1.5": {"CHAOS_DROP": "1.5"},

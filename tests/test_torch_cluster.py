@@ -34,6 +34,8 @@ from etcd_tpu_torch.types import (
 )
 from etcd_tpu_torch.utils.config import RaftConfig
 
+from torch_jax_memory import release_jax_memory  # noqa: F401  (autouse)
+
 SPEC = Spec(M=5, L=16, E=2, K=2, W=4, R=2, A=2)
 CFG = RaftConfig()
 
@@ -210,9 +212,14 @@ def test_read_index_lease_based_equals_jax():
 
 
 def test_cluster_refuses_the_planes_not_ported():
+    """The planes are ported; what a Cluster refuses now is a plane over the
+    packed storage form, as the JAX Cluster does."""
+    packed = dataclasses.replace(RaftConfig(), packed_state=True)
     for plane in ("telemetry", "blackbox"):
-        with pytest.raises(NotImplementedError, match="telemetry or black-box"):
-            TCluster(3, device="cpu", **{plane: True})
+        with pytest.raises(ValueError, match=f"Cluster {plane} reads the unpacked"):
+            TCluster(3, cfg=packed, device="cpu", **{plane: True})
+        assert getattr(TCluster(3, device="cpu", **{plane: True}),
+                       "tele" if plane == "telemetry" else "bb") is not None
 
 
 def test_cluster_defaults_to_cuda():

@@ -28,6 +28,8 @@ from etcd_tpu_torch.kernels.compact_wire import compact_wire_carry, compact_wire
 from etcd_tpu_torch.models import raft as traft
 from etcd_tpu_torch.types import ENT_FIELDS, Msg, Spec
 
+from torch_jax_memory import release_jax_memory  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 

@@ -40,6 +40,7 @@ from etcd_tpu_torch.utils import prng
 from etcd_tpu_torch.utils.config import CrashConfig
 
 from test_torch_chaos import assert_same_run, chaos_geometry, diff, jax_np, jspec, run_both
+from torch_jax_memory import release_jax_memory  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 

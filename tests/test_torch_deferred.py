@@ -34,6 +34,8 @@ from etcd_tpu_torch.models.state import PackedFleet, pack_fleet, unpack_fleet
 from etcd_tpu_torch.ops import outbox as toutbox
 from etcd_tpu_torch.types import PR_PROBE, PR_SNAPSHOT
 
+from torch_jax_memory import release_jax_memory  # noqa: F401  (autouse)
+
 C = 8
 STEADY, DROP_ROUNDS, AFTER_DROP = 16, 2, 6
 SEED = 0

@@ -56,6 +56,8 @@ from etcd_tpu_torch.types import (
 )
 from etcd_tpu_torch.utils.config import RaftConfig
 
+from torch_jax_memory import release_jax_memory  # noqa: F401  (autouse)
+
 SPEC = Spec(M=5, L=16, E=2, K=2, W=4, R=2, A=2)
 CFG = RaftConfig()
 C = 16

@@ -17,6 +17,8 @@ from etcd_tpu_torch.models.metrics import build_metered_round, zero_metrics
 from etcd_tpu_torch.parallel.mesh import build_scan_rounds
 from etcd_tpu_torch.types import MSG_HEARTBEAT
 
+from torch_jax_memory import release_jax_memory  # noqa: F401  (autouse)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "etcd_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "etcd_tpu"}
@@ -50,12 +52,14 @@ def test_imports_and_runs_a_round_with_jax_blocked():
     the settle program, one of bench.py's packed, deferred and sparse
     steady program and one of the full program (chaos_run's config, every
     local step) run at C=2, a 3-member Cluster elects a leader, and a
-    two-round chaos run with crash and membership faults injects both."""
+    two-round chaos run with crash and membership faults injects both and
+    carries the telemetry plane and the black box."""
     code = "\n".join([
         "import sys",
         "for m in ('jax', 'jaxlib', 'flax', 'etcd_tpu'):",
         "    sys.modules[m] = None",
         "import importlib, pkgutil, torch",
+        "import etcd_tpu_torch.models.telemetry, etcd_tpu_torch.models.blackbox",
         "torch.set_num_threads(1)",
         "import etcd_tpu_torch",
         "for mod in pkgutil.walk_packages(etcd_tpu_torch.__path__, 'etcd_tpu_torch.'):",
@@ -92,8 +96,12 @@ def test_imports_and_runs_a_round_with_jax_blocked():
         "rep = run_chaos(spec, RaftConfig(pre_vote=True, check_quorum=True, inbox_bound=4,",
         "                                 coalesce_commit_refresh=True), C=4, rounds=2,",
         "                epoch_len=1, heal_len=1, crash_p=0.3, member_p=0.9,",
-        "                member=MemberChaosConfig(initial_voters=3), device='cpu')",
+        "                member=MemberChaosConfig(initial_voters=3), telemetry=True,",
+        "                blackbox=True, device='cpu')",
         "assert rep['crashes_injected'] > 0 and rep['member_changes_proposed'] > 0, rep",
+        "n = rep['rounds']    # one epoch a round, the WaitHealth epochs included",
+        "assert rep['telemetry']['rounds'] == n and len(rep['timeline']) == n, rep",
+        "assert rep['forensics']['rounds_observed'] == n, rep",
         "assert not any(m in sys.modules and sys.modules[m] is not None",
         "               for m in ('jax', 'flax', 'etcd_tpu'))",
         "print('ok')",
@@ -133,9 +141,7 @@ UNPORTED = {
 @pytest.mark.parametrize("what", sorted(UNPORTED))
 def test_build_round_refuses_what_the_slice_does_not_implement(what):
     """These four parts of a round were refused until the general round was
-    ported; build_round now builds each and runs it. What the port still
-    refuses is the chaos harness's telemetry and black-box planes
-    (tests/test_torch_chaos.py)."""
+    ported; build_round now builds each and runs it."""
     spec = drive.bench_spec()
     full = dict(message_classes=None, entry_classes=None)
     cfg = dataclasses.replace(drive.settle_config(spec), **{**full, **UNPORTED[what]})
@@ -151,9 +157,24 @@ def test_build_round_refuses_what_the_slice_does_not_implement(what):
 
 @pytest.mark.parametrize("plane", ["telemetry", "blackbox"])
 def test_build_metered_round_refuses_the_planes_not_ported(plane):
+    """The planes were refused until they were ported; each now rides the
+    metered round as a trailing argument and result."""
+    from etcd_tpu_torch.models.blackbox import EventRing, init_blackbox
+    from etcd_tpu_torch.models.telemetry import FleetTelemetry, init_telemetry
+
     spec = drive.bench_spec()
-    with pytest.raises(NotImplementedError, match=plane):
-        build_metered_round(drive.settle_config(spec), spec, **{f"with_{plane}": True})
+    cfg = drive.settle_config(spec)
+    st = teng.init_fleet(spec, 2, device="cpu")
+    ib = teng.empty_inbox(spec, 2, True, cfg.inbox_bound, device="cpu")
+    carry = (init_telemetry(spec, st) if plane == "telemetry"
+             else init_blackbox(spec, st))
+    step = build_metered_round(cfg, spec, **{f"with_{plane}": True})
+    args = drive.steady_inputs(spec, 2, "cpu")
+    planes = (carry,) if plane == "telemetry" else (None, carry)
+    out = step(st, ib, *args, zero_metrics("cpu"), *planes)
+    assert len(out) == 4
+    assert isinstance(out[3], FleetTelemetry if plane == "telemetry" else EventRing)
+    assert int(out[3].round) == 1
 
 
 def test_build_scan_rounds_refuses_a_mesh():

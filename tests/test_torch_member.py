@@ -65,6 +65,7 @@ from test_torch_chaos import (
     jspec,
     run_both,
 )
+from torch_jax_memory import release_jax_memory  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 

@@ -27,6 +27,8 @@ from etcd_tpu_torch.ops import outbox as tout
 from etcd_tpu_torch.ops import quorum as tq
 from etcd_tpu_torch.types import Msg, Spec
 
+from torch_jax_memory import release_jax_memory  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 SPEC = Spec(M=5, L=16, E=2, K=2, W=4, R=2, A=2)

@@ -35,6 +35,8 @@ from etcd_tpu_torch.models.state import (
     unpack_fleet,
 )
 
+from torch_jax_memory import release_jax_memory  # noqa: F401  (autouse)
+
 C = 16
 SEED = 0
 

@@ -14,6 +14,8 @@ import torch
 
 from etcd_tpu_torch.utils import prng
 
+from torch_jax_memory import release_jax_memory  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 

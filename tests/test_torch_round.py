@@ -26,6 +26,8 @@ from etcd_tpu_torch import drive
 from etcd_tpu_torch.convert import to_numpy
 from etcd_tpu_torch.models import engine as teng
 
+from torch_jax_memory import release_jax_memory  # noqa: F401  (autouse)
+
 C = 8
 STEADY = 16
 DROP_ROUNDS, AFTER_DROP = 2, 6

@@ -14,6 +14,8 @@ from etcd_tpu_torch.convert import msg_from_numpy, node_state_from_numpy, to_num
 from etcd_tpu_torch.models import engine as teng
 from etcd_tpu_torch.models.state import init_node, state_bytes_per_group
 
+from torch_jax_memory import release_jax_memory  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 SPEC = drive.bench_spec()
