@@ -30,7 +30,13 @@ Phases, each printing its lines:
      replay of its CUDA graph on the card, against the CPU (worker
      processes, one chunk) on the report (telemetry, timeline, forensics)
      and every state, wire and plane leaf, with the compact_inbox launches
-     counted (rounds x chunks);
+     counted (rounds x chunks); then bench.py's apply program
+     (build_kv_round, KVRound's CUDA graph on the card, 2 chunks) for 6
+     settle, 16 proposal (gen_schedules words: puts, delete-ranges, CONT
+     txns, compactions) and 4 drain rounds, card against CPU on every state,
+     wire, KV-fleet and delta leaf every round, with its launches; and the
+     differential fuzz (keys 16, 128 groups, 60 ops), card against CPU on the
+     report and the digests;
   3. the dense eager path (immediate emission): init_fleet, settle_leaders and 16
      steady_rounds at C = 262,144 groups with the kernel launch count read
      around that run, the commit advance and hash-chain checks,
@@ -54,8 +60,10 @@ Phases, each printing its lines:
      CHAOS_C = 262,144, CHAOS_ROUNDS = 75 (a fault epoch of 50 rounds, a
      heal epoch of 25, and the WaitHealth heal epochs it needs) and its
      other defaults (drop 0.02, delay 0.05, partition 0.1, L = 16, bound 4,
-     int16 wire, TELEM=1), its JSON line and verdicts (safe, recovered,
-     lively), its flight-recorder timeline (monotone per counter, none
+     int16 wire, TELEM=1), with CHAOS_LEASE=0 and the KV apply-plane tier of
+     chaos_run.py's docstring (APPLY_KEYS=64, APPLY_GROUPS=256,
+     APPLY_OPS=200), its JSON line and verdicts (safe, recovered, lively,
+     lease_safe, apply_parity_ok), its flight-recorder timeline (monotone per counter, none
      wrapped), wall time, launches and peak memory; then a device profile of
      2 eager fault rounds with both planes (device busy time, idle share,
      launches per round, device time under tick_timers, process_message,
@@ -76,9 +84,22 @@ Phases, each printing its lines:
      check_recovery_invariants, inject_member); then the same knobs at
      C = 65,536 for 75 rounds with TELEM=0, the report held key for key to
      the reference's committed one (CHAOS_MEMBER_65K_PIN.json, which holds
-     no plane keys).
+     no plane keys);
+  8. the served-writes path: etcd_tpu_torch.bench's APPLY_MODE=device at its
+     defaults (C = 262,144 in 2 chunks, 32 rounds, 64 keys; each round one
+     replay of KVRound's CUDA graph and one read of the delta count), its
+     JSON line, every write served (8,388,608), the compact_inbox launches
+     (rounds x chunks + the warm-up round), peak memory, the graph capture's
+     time apart, every lane's kv_digest against a host MVCCStore replay of
+     the proposed words, the kernel timed on the compact_inbox input of an eager
+     round of one chunk of its end state (``--profile`` adds device profiles
+     of 2 graph replays at full width and of 2 eager rounds on one chunk,
+     with the device time under apply_word and extract_deltas); then
+     APPLY_MODE=both at APPLY_C = 4,096 (half APPLY_r08.json's size), both modes
+     served and digests_match.
 Then a line with the kernels' JSON record (the one kernel: at its carry
-site, and at compact_inbox on the network, crash and membership paths),
+site, and at compact_inbox on the network, crash, membership and
+served-writes paths),
 nvidia-smi's name and power limit, and last {"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line. A chaos path's verdicts
 (safe, recovered, lively) are all required; one that is false is printed
@@ -548,6 +569,97 @@ def phase_chaos_small(C=64, chunks=2):
                   f"leaf: {json.dumps(rep)}", flush=True)
 
 
+def phase_kv_small(C=64, chunks=2, settle=6, proposals=16, drain=4):
+    """bench.py's apply program (build_kv_round) at C = ``C``: on the card in
+    ``chunks`` fleet chunks, each round a replay of KVRound's CUDA graph,
+    against the eager round on the CPU in one chunk, on every state, wire,
+    KV-fleet and delta leaf after every round: ``settle`` rounds from a
+    MsgHup, then ``proposals`` rounds of gen_schedules words (puts,
+    delete-ranges, CONT txns, compactions; each group its own), then
+    ``drain``; the compact_inbox launches are rounds x chunks plus the
+    graph's warm-up round. Then the differential fuzz at keys 16, 128
+    groups, 60 ops: card against CPU on the report and the digests."""
+    import torch
+
+    from etcd_tpu_torch import bench, drive
+    from etcd_tpu_torch.device_mvcc import KVSpec, apply_words, init_kv, kv_digest
+    from etcd_tpu_torch.device_mvcc.fuzz import differential_run, gen_schedules
+    from etcd_tpu_torch.kernels import LAUNCHES, reset_launches
+    from etcd_tpu_torch.models.engine import (KVRound, build_kv_round, empty_inbox,
+                                              init_fleet)
+
+    t0 = time.perf_counter()
+    spec = drive.bench_spec()
+    kvspec = KVSpec(keys=64)
+    cfg = bench.apply_config(spec, chunks)
+    words = gen_schedules(kvspec, C, proposals, seed=0)
+    reset_launches()
+    card = KVRound(cfg, spec, kvspec)
+    cpu = build_kv_round(dataclasses.replace(cfg, fleet_chunks=1), spec, kvspec)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        runs[dev] = [init_fleet(spec, C, device=dev), empty_inbox(spec, C, device=dev),
+                     init_kv(kvspec, C, dev)]
+    M, E = spec.M, spec.E
+    n_rounds = settle + proposals + drain
+    events = 0
+    for r in range(n_rounds):
+        p = r - settle
+        ends = {}
+        for dev, (st, ib, kv) in runs.items():
+            pl = torch.zeros((M, C), dtype=torch.int32, device=dev)
+            pd = torch.zeros((M, E, C), dtype=torch.int32, device=dev)
+            if 0 <= p < proposals:
+                pl[0] = 1
+                pd[0, 0] = torch.from_numpy(words[p]).to(dev)
+            hup = torch.zeros((M, C), dtype=torch.bool, device=dev)
+            hup[0] = r == 0
+            no = torch.zeros((M, C), dtype=torch.bool, device=dev)
+            keep = torch.ones((M, M, C), dtype=torch.bool, device=dev)
+            on = torch.ones((C,), dtype=torch.bool, device=dev)
+            step = card if dev == "cuda" else cpu
+            ends[dev] = step(st, ib, kv, on, pl, pd, pd * 0, pl * 0, hup, no, keep)
+            runs[dev] = list(ends[dev][:3])
+        torch.cuda.synchronize()
+        bad = [d for n, a, b in zip(("state", "inbox", "kv", "delta"), ends["cuda"],
+                                    ends["cpu"]) for d in tree_diff(a, b, n)]
+        if bad:
+            raise AssertionError(f"KV round {r} at C={C}: card != CPU on {bad}")
+        events += int(ends["cpu"][3].mask.sum())
+    launches = graph_launches(LAUNCHES, [card.graph])
+    kv = runs["cpu"][2]
+    if launches.get("compact_inbox") != (n_rounds + 1) * chunks or \
+            card.graph.replays != n_rounds:
+        raise AssertionError(f"compact_inbox launches {launches} over {n_rounds} "
+                             f"rounds x {chunks} chunks (+ {chunks} in the warm-up), "
+                             f"{card.graph.replays} replays")
+    if not (events and int(kv.err_compacted.sum() + kv.err_future.sum())
+            and bool(kv.tomb.any())):
+        raise AssertionError(f"the KV rounds served {events} events; no error or "
+                             "tombstone lane")
+    card.release()
+    print(f"phase 2 KV round C={C} in {chunks} chunks ({time.perf_counter() - t0:.1f}s): "
+          f"{settle} settle + {proposals} proposal + {drain} drain rounds as replays of "
+          f"one CUDA graph, card == CPU (one chunk) on every state, wire, KV-fleet and "
+          f"delta leaf every round; {events} watch events, {int(kv.current_rev.min())} to "
+          f"{int(kv.current_rev.max())} current_rev, {int(kv.err_compacted.sum())} "
+          f"ErrCompacted and {int(kv.err_future.sum())} ErrFutureRev lanes; compact_inbox "
+          f"{launches['compact_inbox']} launches = {n_rounds} rounds x {chunks} chunks + "
+          f"{chunks} warm-up", flush=True)
+    fuzz = KVSpec(keys=16)
+    reps = {dev: differential_run(fuzz, 128, 60, seed=0, device=dev)
+            for dev in ("cuda", "cpu")}
+    words = gen_schedules(fuzz, 128, 60, seed=0)
+    digs = {dev: kv_digest(fuzz, apply_words(fuzz, init_kv(fuzz, 128, dev), words)).cpu()
+            for dev in ("cuda", "cpu")}
+    if reps["cuda"] != reps["cpu"] or not reps["cuda"]["parity_ok"] or \
+            not torch.equal(digs["cuda"], digs["cpu"]):
+        raise AssertionError(f"differential fuzz: card {reps['cuda']} != CPU "
+                             f"{reps['cpu']}, or the digests differ")
+    print(f"phase 2 differential fuzz keys=16, 128 groups x 60 ops: card == CPU on the "
+          f"report and all 128 digests: {json.dumps(reps['cuda'])}", flush=True)
+
+
 TIMELINE_COUNTERS = ("round", "commit_sum", "elect_sum", "heal_sum", "leader_changes",
                      "snapshot_installs", "heal_rounds")
 
@@ -776,10 +888,12 @@ PROFILED_MEMBER = (("etcd_tpu_torch.harness.chaos", "pre_round"),
 # the chaos paths: phase -> (chaos_run knobs, report keys the phase's line
 # prints)
 CHAOS_PATHS = {
-    # cut from C = 1,048,576 to keep the script's time for phase 7b
-    "6": ({"CHAOS_C": str(FULL_GROUPS // 4)}, ()),
+    # cut from C = 1,048,576 to keep the script's time for phase 7b; with the
+    # KV apply-plane tier of chaos_run.py's docstring
+    "6": ({"CHAOS_LEASE": "0", "CHAOS_C": str(FULL_GROUPS // 4), "APPLY_KEYS": "64",
+           "APPLY_GROUPS": "256", "APPLY_OPS": "200"}, ()),
     # chaos_run.py's docstring and tests/test_recovery_crash.py:219
-    "7a": ({"CHAOS_C": str(FULL_GROUPS // 4), "CHAOS_CRASH": "0.01",
+    "7a": ({"CHAOS_LEASE": "0", "CHAOS_C": str(FULL_GROUPS // 4), "CHAOS_CRASH": "0.01",
             "CHAOS_BLACKBOX": "1"},
            ("crashes_injected", "entries_lost_fsync", "restarts_completed",
             "lost_commit", "snap_window_hit_rate")),
@@ -787,7 +901,8 @@ CHAOS_PATHS = {
     # cut from C = 1,048,576 to 262,144 groups (in 131,072-group chunks, the
     # chunk chaos_run.py takes at full width), and (in main) to one fault and
     # one heal epoch of 25 rounds, to fit the script's time limit
-    "7b": ({"CHAOS_C": str(FULL_GROUPS // 4), "CHAOS_CHUNKS": "2", "CHAOS_MEMBER": "0.05",
+    "7b": ({"CHAOS_LEASE": "0", "CHAOS_C": str(FULL_GROUPS // 4), "CHAOS_CHUNKS": "2",
+            "CHAOS_MEMBER": "0.05",
             "CHAOS_CRASH": "0.005", "CHAOS_SNAP_BOOST": "200", "CHAOS_MEMBER_BOOST": "4"},
            ("crashes_injected", "entries_lost_fsync", "conf_changes_applied",
             "joint_entered", "joint_left", "cc_guard_refusals", "cc_guard_admits",
@@ -799,7 +914,8 @@ CHAOS_PATHS = {
 # the membership tier at the largest size the reference has run (on the
 # CPU), and where its report is kept; that report holds no plane keys, so
 # the run keeps the telemetry plane off
-MEMBER_PIN = ({"CHAOS_C": "65536", "CHAOS_ROUNDS": "75", "CHAOS_MEMBER": "0.05",
+MEMBER_PIN = ({"CHAOS_LEASE": "0", "CHAOS_C": "65536", "CHAOS_ROUNDS": "75",
+               "CHAOS_MEMBER": "0.05",
                "CHAOS_CRASH": "0.005", "CHAOS_SNAP_BOOST": "200", "CHAOS_MEMBER_BOOST": "4",
                "TELEM": "0"},
               "CHAOS_MEMBER_65K_PIN.json")
@@ -935,7 +1051,16 @@ def phase_chaos_path(card, phase, rounds=CHAOS_ROUNDS, lens=None, profiled=None,
                              f"replays; {done} rounds x {cfg.fleet_chunks} chunks")
     del graphs
     # the verdicts are required; the measurements below print first
-    bad = [key for key in ("safe", "recovered", "lively") if not rep[key]]
+    # (a cut of the epochs runs run_chaos alone: no lease or apply gate)
+    gates = ("safe", "recovered", "lively") + (("lease_safe", "apply_parity_ok")
+                                               if lens is None else ())
+    bad = [key for key in gates if not rep[key]]
+    if k["apply_keys"]:
+        print(f"phase {phase} KV apply-plane tier (APPLY_KEYS={k['apply_keys']}, "
+              f"{k['apply_groups']} groups x {k['apply_ops']} ops on the card against "
+              f"host MVCCStore replays): apply_parity_ok {rep['apply_parity_ok']}, "
+              f"kv_plane {json.dumps(rep.get('kv_plane', rep.get('kv_plane_error')))}",
+              flush=True)
     if rep["groups"] != k["C"]:
         bad.append(f"groups {rep['groups']}")
     if k["telemetry"]:
@@ -1031,6 +1156,147 @@ def _verdicts(phase, k, bad) -> list[str]:
     return [f"phase {phase}: not {bad}"] if bad else []
 
 
+# phase 8's second run: APPLY_MODE=both at half APPLY_r08.json's 8,192 groups,
+# so that the whole script keeps inside its time limit (PERF.md section 4)
+SERVED_BOTH_C = 4096
+
+
+# functions whose device time phase 8's profile reports
+PROFILED_KV = (("etcd_tpu_torch.models.raft", "process_message"),
+               ("etcd_tpu_torch.models.raft", "apply_round"),
+               ("etcd_tpu_torch.models.raft", "compact_inbox_slots"),
+               ("etcd_tpu_torch.models.engine", "apply_word"),
+               ("etcd_tpu_torch.models.engine", "extract_deltas"))
+
+
+def phase_served(card, profile=False):
+    """bench.py's served-writes path through etcd_tpu_torch.bench's
+    apply_run (what ``python -m etcd_tpu_torch.bench`` runs for APPLY_MODE):
+    APPLY_MODE=device at its defaults (C = 262,144 in 2 chunks, 32 rounds,
+    64 keys), its JSON line, every write served, the compact_inbox launches
+    (settle + timed + drain rounds, times the chunks, plus the graph's
+    warm-up round), every lane's kv_digest against a host MVCCStore replay
+    of the proposed words, and the kernel timed on the compact_inbox input of
+    one eager round of its end state (one chunk); with ``profile``, device
+    profiles of 2 replays of the graph at full width and of 2 eager rounds
+    on one chunk; then APPLY_MODE=both at C = SERVED_BOTH_C, both modes
+    served and the digests matching. Returns the kernel record and the
+    failures."""
+    import torch
+
+    from etcd_tpu_torch import bench, drive
+    from etcd_tpu_torch.device_mvcc import KVSpec, scheme
+    from etcd_tpu_torch.device_mvcc.fuzz import host_replay
+    from etcd_tpu_torch.kernels import LAUNCHES, reset_launches
+    from etcd_tpu_torch.models import raft
+    from etcd_tpu_torch.models.engine import build_kv_round
+
+    knobs = bench.read_apply_knobs({"APPLY_MODE": "device"})
+    free_card()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = bench.apply_run(knobs, "cuda")
+    wall = time.perf_counter() - t0
+    rep = res.report
+    print(json.dumps(rep), flush=True)
+    m = res.modes["device"]
+    graph = res.rnd.graph
+    launches = graph_launches(LAUNCHES, [graph])
+    n_rounds = m.settle_rounds + knobs.rounds + bench.DRAIN_ROUNDS
+    want_launches = (n_rounds + 1) * knobs.chunks
+    kvspec = KVSpec(keys=knobs.keys)
+    store, _, _ = host_replay(kvspec, res.words)
+    host_digest = scheme.store_latest_digest(store, knobs.keys)
+    # every group gets the same words, so every lane, in every chunk, must
+    # hold the one host digest
+    differ = int((m.digests != host_digest).sum())
+    print(f"phase 8 served writes (APPLY_MODE=device) C={knobs.C} on {card}: "
+          f"{rep['device_writes_per_sec']} writes/s ({rep['device_served_events']} served "
+          f"in {rep['device_elapsed_s']} s: {knobs.rounds} timed + "
+          f"{bench.DRAIN_ROUNDS} drain rounds, one graph replay and one delta-count read "
+          f"each), settle {m.settle_rounds} rounds in {m.settle_s:.2f}s of which the "
+          f"first round (eager warm-up and graph capture) {m.first_round_s:.2f}s; "
+          f"{wall:.1f}s in all; fleet_chunks {knobs.chunks}, peak memory "
+          f"{res.peaks['device'] / 2**30:.2f} GiB; compact_inbox {launches} launches "
+          f"(want {n_rounds} rounds x {knobs.chunks} chunks + {knobs.chunks} warm-up = "
+          f"{want_launches}), {graph.replays} replays of {dict(graph.captured)} recorded; "
+          f"kv_digest of all {len(m.digests)} lanes against the host MVCCStore "
+          f"replay's {host_digest}: {differ} differ", flush=True)
+    failed = []
+    if not (rep["device_served_ok"] and rep["device_served_events"] == knobs.rounds * knobs.C):
+        failed.append(f"device served {rep['device_served_events']} of "
+                      f"{knobs.rounds * knobs.C}")
+    if launches.get("compact_inbox") != want_launches:
+        failed.append(f"compact_inbox launched {launches}, want {want_launches}")
+    if len(m.digests) != knobs.C or differ:
+        failed.append(f"kv_digest != the host replay on {differ} of {len(m.digests)} lanes")
+
+    if profile:
+        profile_rounds(f"phase 8 profile of 2 rounds (graph replay, C={knobs.C})",
+                       lambda: [res.rnd(*graph.carry[:3], *graph.carry[4:])
+                                for _ in range(2)], 2, card, PROFILED_KV)
+    # the kernel on this path's own input: one eager round of the end state's
+    # first chunk, its compact_inbox input kept
+    st, ib, kv = (cut_groups(x, knobs.C // knobs.chunks) for x in graph.carry[:3])
+    args = [cut_groups(x, knobs.C // knobs.chunks) for x in graph.carry[4:]]
+    res.rnd.release()
+    del res
+    free_card()
+    spec = drive.bench_spec()
+    one = build_kv_round(bench.apply_config(spec, 1), spec, kvspec)
+    seen = {}
+    real = raft.compact_inbox_slots
+
+    def recording(flat, B):
+        seen.update(flat=flat.map(lambda _, x: x.clone()), B=B)
+        return real(flat, B)
+
+    raft.compact_inbox_slots = recording
+    try:
+        one(st, ib, kv, *args)
+    finally:
+        raft.compact_inbox_slots = real
+    flat = seen.pop("flat")
+    msgs = flat.map(lambda _, x: x.view((spec.M, spec.K) + x.shape[1:]))
+    print("phase 8 ", end="")
+    record = kernel_record(spec, msgs, bench.apply_config(spec, 1).inbox_bound,
+                           "the served-writes inbox", "inbox")
+    record["path"] = "phase 8: bench APPLY_MODE=device"
+    record["launches"] = launches.get("compact_inbox", 0)
+    del flat, msgs
+    if profile:
+        carry = [st, ib, kv]
+
+        def two():
+            for _ in range(2):
+                carry[:] = one(*carry, *args)[:3]
+        profile_rounds(f"phase 8 profile of 2 eager rounds (one chunk, "
+                       f"C={knobs.C // knobs.chunks})", two, 2, card, PROFILED_KV)
+        del carry
+    del st, ib, kv, args, one
+    free_card()
+
+    both = bench.read_apply_knobs({"APPLY_MODE": "both", "APPLY_C": str(SERVED_BOTH_C)})
+    t0 = time.perf_counter()
+    res = bench.apply_run(both, "cuda")
+    wall = time.perf_counter() - t0
+    rep = res.report
+    print(json.dumps(rep), flush=True)
+    print(f"phase 8 APPLY_MODE=both C={both.C} on {card}: device "
+          f"{rep['device_writes_per_sec']} writes/s, host {rep['host_writes_per_sec']} "
+          f"(device_vs_host_speedup {rep['device_vs_host_speedup']}), digests_match "
+          f"{rep['digests_match']} on {rep['digest_lanes_checked']} lanes; {wall:.1f}s in "
+          "all", flush=True)
+    if not (rep["digests_match"] and rep["device_served_ok"] and rep["host_served_ok"]):
+        failed.append(f"APPLY_MODE=both at C={both.C}: {rep}")
+    res.rnd.release()
+    del res
+    free_card()
+    for f in failed:
+        print(f"phase 8 FAILED: {f}", flush=True)
+    return record, [f"phase 8: {f}" for f in failed]
+
+
 # functions whose device time the profile reports as named ranges
 PROFILED = (("etcd_tpu_torch.models.raft", "process_message"),
             ("etcd_tpu_torch.utils.prng", "threefry2x32"),
@@ -1108,14 +1374,15 @@ def profile_rounds(label, fn, rounds, card, profiled=PROFILED):
               f"{e.count / rounds:8.1f}x  {e.key[:140]}")
 
 
-PHASES = ("1", "2", "3", "4", "5", "6", "7a", "7b")
+PHASES = ("1", "2", "3", "4", "5", "6", "7a", "7b", "8")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile two steady rounds of phase 3 and the "
-                    "full-width graph replay of two chaos fault rounds (phase 6)")
+                    help="also profile two steady rounds of phase 3, the "
+                    "full-width graph replay of two chaos fault rounds (phase 6), "
+                    "and two KV rounds of phase 8 (graph replay and eager)")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="the phases to run, comma-separated (default: all; phase 5 "
                     "needs 4); the kernels and result lines print only when all run")
@@ -1151,6 +1418,7 @@ def main(argv=None) -> int:
     if "2" in want:
         phase_round()
         phase_chaos_small()
+        phase_kv_small()
         done(2)
     if "3" in want:
         phase_full(smi, args.profile)
@@ -1183,6 +1451,10 @@ def main(argv=None) -> int:
                   "the port; safe and lively hold", flush=True)
             failed.remove("phase 7b: not ['recovered']")
         failed += pin
+    if "8" in want:
+        records["served"], served_failed = phase_served(smi, args.profile)
+        failed += served_failed
+        done(8)
     if want != list(PHASES):
         print(f"phases {args.phases} in {time.perf_counter() - t0:.1f}s (a subset: no "
               "kernels or result line)")
@@ -1198,6 +1470,7 @@ def main(argv=None) -> int:
         record["launches"] = paths[phase][0].get("compact_inbox", 0)
         if record is not records["inbox"]:
             kernels.append(record)
+    kernels.append(records["served"])
     bad = [r["site"] + " " + r.get("path", "") for r in kernels if not r["launches"]]
     if bad:
         raise AssertionError(f"no launch of the kernel on: {bad}")

@@ -25,10 +25,22 @@ the CUDA card (or the CPU, where a caller passes ``device="cpu"``):
 The knobs are bench.py's, with its accelerator defaults: BENCH_C,
 BENCH_ROUNDS, BENCH_REPS, BENCH_PACKED, BENCH_SPARSE, BENCH_DEFERRED,
 BENCH_CHUNKS, TELEM (1), TELEM_BUCKETS (8, in 2..16) and BENCH_BLACKBOX
-(1). A knob the port does not implement (the apply benchmark, other ring,
-window, inbox or wire forms, the profiler, --preflight) exits 2 unless it
-is set to the one value the port runs, as bench.py exits 2 on a value it
-cannot honour.
+(1). A knob the port does not implement (other ring, window, inbox or wire
+forms, the profiler, --preflight) exits 2 unless it is set to the one value
+the port runs, as bench.py exits 2 on a value it cannot honour.
+
+APPLY_MODE (off, device, host or both) switches to bench.py's end-to-end
+served-writes benchmark (bench.py:11-35, 124-278): every round proposes one
+canonical KV put per group, and a write counts once it is committed,
+applied to an MVCC revision store and surfaced as a watch delta. In device
+mode the apply plane rides the round (models/engine.py build_kv_round, one
+CUDA graph a round, KVRound) and the per-round delta count is the host
+handoff; in host mode the same round runs with the apply operand off and
+each round's committed words replay through one WatchableStore per group;
+both runs the two on the same schedule and compares the digests of 64
+lanes. Its knobs: APPLY_C (262,144 on the card, 8,192 on the CPU),
+APPLY_ROUNDS (32), APPLY_KEYS (64, in 1..511) and BENCH_CHUNKS (C //
+131,072 on the card), all checked before any device work.
 """
 from __future__ import annotations
 
@@ -39,11 +51,14 @@ import resource
 import sys
 import time
 
+import numpy as np
 import torch
 
 from etcd_tpu_torch import drive
+from etcd_tpu_torch.device_mvcc import KVSpec, init_kv, kv_digest, scheme
 from etcd_tpu_torch.models.blackbox import init_blackbox
 from etcd_tpu_torch.models.engine import (
+    KVRound,
     build_round,
     empty_inbox,
     inbox_bytes_per_group,
@@ -62,10 +77,12 @@ from etcd_tpu_torch.models.state import (
 )
 from etcd_tpu_torch.models.telemetry import init_telemetry, telemetry_report
 from etcd_tpu_torch.parallel.mesh import ScanRounds, build_scan_rounds
-from etcd_tpu_torch.types import Spec
+from etcd_tpu_torch.server.mvcc import MVCCStore
+from etcd_tpu_torch.server.watch import WatchableStore
+from etcd_tpu_torch.types import ROLE_LEADER, Spec
 from etcd_tpu_torch.utils.config import RaftConfig
 from etcd_tpu_torch.utils.device import resolve_device
-from etcd_tpu_torch.utils.knobs import env_bool, env_int, knob_error
+from etcd_tpu_torch.utils.knobs import env_bool, env_int, env_str, knob_error
 
 PROG = "bench"
 BASELINE_WRITES_PER_SEC = 10_000                      # bench.py:103
@@ -76,7 +93,7 @@ PROBE_PASSES = 3
 # knobs bench.py reads that the port runs at one value only: its
 # accelerator default, or the feature off
 FIXED_KNOBS = {
-    "APPLY_MODE": "off", "BENCH_L": "16", "BENCH_W": "4", "BENCH_INBOX": "4",
+    "BENCH_L": "16", "BENCH_W": "4", "BENCH_INBOX": "4",
     "BENCH_WIRE16": "1", "BENCH_CWIRE": "1", "BENCH_CC": "0", "BENCH_PROFILE": "0",
 }
 
@@ -314,13 +331,211 @@ def run(knobs: Knobs, device=None) -> BenchRun:
     return BenchRun(report, scan, settle_rounds, timed, state, inbox, peaks)
 
 
+APPLY_MODES = ("off", "device", "host", "both")
+DRAIN_ROUNDS = 4        # commit lags 2 rounds behind the proposal (bench.py:191)
+DIGEST_LANES = 64       # lanes whose digests the host replays (bench.py:229, 270)
+
+
+@dataclasses.dataclass(frozen=True)
+class ApplyKnobs:
+    mode: str
+    C: int
+    rounds: int
+    keys: int
+    chunks: int
+
+
+def read_apply_knobs(environ=None, on_card: bool = True) -> ApplyKnobs:
+    """bench.py's APPLY_* knobs (bench.py:106-121) and the apply benchmark's
+    BENCH_CHUNKS (bench.py:144-146), validated with the exit-2 contract."""
+    env = os.environ if environ is None else environ
+    mode = env_str(PROG, "APPLY_MODE", "off", APPLY_MODES, environ=env)
+    C = env_int(PROG, "APPLY_C", "262144" if on_card else "8192", lo=1, environ=env)
+    rounds = env_int(PROG, "APPLY_ROUNDS", "32", lo=1, environ=env)
+    keys = env_int(PROG, "APPLY_KEYS", "64", lo=1, hi=scheme.MAX_KEYS, environ=env)
+    chunks = env_int(PROG, "BENCH_CHUNKS", str(max(1, C // 131072)) if on_card else "1",
+                     lo=1, environ=env)
+    return ApplyKnobs(mode, C, rounds, keys, chunks)
+
+
+def apply_config(spec: Spec, chunks: int) -> RaftConfig:
+    """bench.py:147-151: bench.py's geometry on the int32 wire (KV words use
+    bits 0-27), the inbox bound M-1 and ``chunks`` fleet chunks, with every
+    local step, message class and entry class, as the reference runs it."""
+    return RaftConfig(pre_vote=True, check_quorum=True, max_inflight=4,
+                      inbox_bound=spec.M - 1, coalesce_commit_refresh=True,
+                      wire_int16=False, fleet_chunks=chunks)
+
+
+def proposal_words(knobs: ApplyKnobs) -> list:
+    """One canonical put a round, every group: rotating keys, varying
+    payloads (bench.py:165-168)."""
+    return [scheme.encode_put(r % knobs.keys, (100 + r) & scheme.MAX_VAL,
+                              r % (scheme.MAX_LEASE + 1)) for r in range(knobs.rounds)]
+
+
+@dataclasses.dataclass
+class ApplyMode:
+    elapsed_s: float        # the timed rounds, host clock
+    served: int             # watch events delivered
+    digests: np.ndarray     # int32 kv_digest lanes (all C on the device, 64 on the host)
+    settle_rounds: int
+    settle_s: float         # the settle, the graph's warm-up and capture included
+    first_round_s: float    # the settle's first round: on the card, in the first
+    # mode run, the graph's eager warm-up round and its capture
+
+
+@dataclasses.dataclass
+class ApplyRun:
+    report: dict            # bench.py's served-writes JSON line
+    rnd: KVRound            # the round program (its graph's captures and replays)
+    modes: dict             # "device" / "host" -> ApplyMode
+    words: list             # the proposal schedule
+    peaks: dict = dataclasses.field(default_factory=dict)
+
+
+def apply_run(knobs: ApplyKnobs, device=None) -> ApplyRun:
+    """bench.py's served-writes benchmark (bench.py:124-278) at ``knobs``."""
+    dev = resolve_device(device)
+    C, keys = knobs.C, knobs.keys
+    kvspec = KVSpec(keys=keys)
+    spec = drive.bench_spec()
+    cfg = apply_config(spec, knobs.chunks)
+    M, E = spec.M, spec.E
+    rnd = KVRound(cfg, spec, kvspec, 0)
+
+    def zeros(shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    z2, zp = zeros((M, C)), zeros((M, E, C))
+    no_hup = no_tick = zeros((M, C), torch.bool)
+    hup = no_hup.clone()
+    hup[0] = True
+    keep = torch.ones((M, M, C), dtype=torch.bool, device=dev)
+    pl = z2.clone()
+    pl[0] = 1
+    words = proposal_words(knobs)
+
+    def fresh_fleet():
+        state = init_fleet(spec, C, seed=0, election_tick=cfg.election_tick, device=dev)
+        inbox = empty_inbox(spec, C, wire_int16=False, device=dev)
+        kv = init_kv(kvspec, C, dev)
+        off = zeros((C,), torch.bool)
+        t0 = time.perf_counter()
+        state, inbox, kv, _ = rnd(state, inbox, kv, off, z2, zp, zp, z2, hup, no_tick, keep)
+        leaders = int((state.role == ROLE_LEADER).sum())
+        first_s = time.perf_counter() - t0
+        n = 1
+        while leaders != C and n < 25:
+            state, inbox, kv, _ = rnd(state, inbox, kv, off, z2, zp, zp, z2, no_hup,
+                                      no_tick, keep)
+            leaders = int((state.role == ROLE_LEADER).sum())
+            n += 1
+        if leaders != C:
+            raise RuntimeError("fleet failed to elect")
+        return state, inbox, kv, n, first_s
+
+    def run_mode(on_device: bool) -> ApplyMode:
+        """One timed pass. A write is served once its watch delta is visible
+        past the device boundary: the per-round delta count on the device,
+        the per-group watcher buffers on the host."""
+        t0 = time.perf_counter()
+        state, inbox, kv, settle_rounds, first_s = fresh_fleet()
+        settle_s = time.perf_counter() - t0
+        do_apply = torch.full((C,), on_device, dtype=torch.bool, device=dev)
+        if not on_device:
+            hosts = []
+            for _ in range(C):
+                ws = WatchableStore(MVCCStore())
+                hosts.append((ws, ws.watch(scheme.key_bytes(0), b"\x00").id))
+            cursors = [0] * C
+        served = 0
+        L = spec.L
+        t0 = time.perf_counter()
+        for r in range(knobs.rounds + DRAIN_ROUNDS):
+            if r < knobs.rounds:
+                pd = zp.clone()
+                pd[0, 0] = words[r]
+                props = (pl, pd)
+            else:
+                props = (z2, zp)
+            state, inbox, kv, delta = rnd(state, inbox, kv, do_apply, *props, zp, z2,
+                                          no_hup, no_tick, keep)
+            if on_device:
+                served += int(delta.mask.sum())     # the per-round handoff
+                continue
+            applied = state.applied[0].tolist()
+            ld = state.log_data[0].cpu().numpy()
+            for g in range(C):
+                ws, wid = hosts[g]
+                for idx in range(cursors[g] + 1, applied[g] + 1):
+                    word = int(ld[(idx - 1) % L, g])
+                    if word:
+                        op = scheme.decode(word)
+                        txn = ws.kv.write_txn()
+                        txn.put(scheme.key_bytes(op["key"]),
+                                scheme.encode_value(op["val"]), op["lease"])
+                        txn.end()
+                        ws.notify(txn.events)
+                cursors[g] = applied[g]
+                # drain per round: served = delivered to the consumer
+                served += len(ws.take_events(wid))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        elapsed = time.perf_counter() - t0
+        if on_device:
+            digs = kv_digest(kvspec, kv).cpu().numpy()
+        else:
+            digs = np.asarray([scheme.store_latest_digest(ws.kv, keys)
+                               for ws, _ in hosts[:DIGEST_LANES]], np.int32)
+        return ApplyMode(elapsed, served, digs, settle_rounds, settle_s, first_s)
+
+    platform = "gpu" if dev.type == "cuda" else dev.type
+    rep = {
+        "metric": "served_writes_per_sec",
+        "unit": ("committed+applied+watch-delta writes/s "
+                 f"(C={C}, rounds={knobs.rounds}, keys={keys}, {platform}; "
+                 "baseline = reference's 10k writes/s headline)"),
+        "C": C, "rounds": knobs.rounds, "keys": keys, "platform": platform,
+    }
+    modes, peaks = {}, {}
+    want = knobs.rounds * C
+    for name in ("device", "host"):
+        if knobs.mode not in (name, "both"):
+            continue
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        m = modes[name] = run_mode(name == "device")
+        if dev.type == "cuda":
+            peaks[name] = torch.cuda.max_memory_allocated(dev)
+        rep[f"{name}_writes_per_sec"] = round(want / m.elapsed_s, 1)
+        rep[f"{name}_elapsed_s"] = round(m.elapsed_s, 3)
+        rep[f"{name}_served_events"] = m.served
+        rep[f"{name}_served_ok"] = m.served == want
+    if knobs.mode == "both":
+        n = min(DIGEST_LANES, C)
+        rep["digests_match"] = bool((modes["device"].digests[:n]
+                                     == modes["host"].digests[:n]).all())
+        rep["digest_lanes_checked"] = n
+        rep["device_vs_host_speedup"] = round(
+            rep["device_writes_per_sec"] / rep["host_writes_per_sec"], 2)
+        rep["vs_baseline"] = round(rep["device_writes_per_sec"] / BASELINE_WRITES_PER_SEC, 2)
+    return ApplyRun(rep, rnd, modes, words, peaks)
+
+
 def main(argv=None, device=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv:
         knob_error(PROG, f"unknown argument(s): {' '.join(argv)} (etcd_tpu_torch's "
                          "bench takes none, --preflight included; configure via "
                          "BENCH_* knobs)")
-    res = run(read_knobs(), device)
+    # the APPLY_* knobs first, as bench.py:297-314
+    on_card = device is None or torch.device(device).type == "cuda"
+    apply_knobs = read_apply_knobs(on_card=on_card)
+    if apply_knobs.mode != "off":
+        res = apply_run(apply_knobs, device)
+    else:
+        res = run(read_knobs(), device)
     print(json.dumps(res.report), flush=True)
     if res.peaks:
         print(f"{PROG}: peak device memory {max(res.peaks.values())} B over the whole "

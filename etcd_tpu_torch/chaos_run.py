@@ -10,11 +10,11 @@ epochs of 25, then one JSON line with the violation counts, the crash and
 membership counters, the liveness figures, the flight recorder's timeline
 and telemetry report, with the black box the forensics section, and the
 verdicts of ``summarize_chaos``. It exits 0 when the run is safe, recovered
-and lively.
+and lively, and the lease and apply gates hold.
 
-    CHAOS_C=262144 CHAOS_CRASH=0.01 python -m etcd_tpu_torch.chaos_run
-    CHAOS_C=1048576 CHAOS_MEMBER=0.05 CHAOS_CRASH=0.005 CHAOS_SNAP_BOOST=200 \
-        CHAOS_MEMBER_BOOST=4 python -m etcd_tpu_torch.chaos_run
+    CHAOS_LEASE=0 CHAOS_C=262144 CHAOS_CRASH=0.01 python -m etcd_tpu_torch.chaos_run
+    CHAOS_LEASE=0 CHAOS_C=1048576 CHAOS_MEMBER=0.05 CHAOS_CRASH=0.005 \
+        CHAOS_SNAP_BOOST=200 CHAOS_MEMBER_BOOST=4 python -m etcd_tpu_torch.chaos_run
 
 The knobs, their defaults and their checks are chaos_run.py's: CHAOS_C
 (262,144 on the card, 1,000 on the CPU), CHAOS_ROUNDS, CHAOS_DROP,
@@ -30,10 +30,21 @@ scheduling) and CHAOS_CONFIG_AWARE (0: the config-blind checkers); the
 telemetry plane's TELEM (1), TELEM_BUCKETS (8, in 2..16) and TELEM_EVERY
 (1: a timeline row at every epoch boundary); the black box's CHAOS_BLACKBOX
 (0), CHAOS_BLACKBOX_K (4 groups decoded) and CHAOS_BLACKBOX_WINDOW (32
-rounds, in 2..256). The membership tier runs on the int32 wire (its words
-use bits 16-20): an explicit CHAOS_WIRE16=1 beside it exits 2. The tiers
-the port does not run yet exit 2 unless left off: CHAOS_LEASE=0,
-APPLY_KEYS=0, CHAOS_PRNG=threefry, and ``--preflight``.
+rounds, in 2..256); the KV apply-plane tier's APPLY_KEYS (0: off, else the
+key space, up to 511), APPLY_GROUPS (256) and APPLY_OPS (200), which runs
+the device-vs-host differential parity pass (device_mvcc/fuzz.py) after
+the chaos run and adds ``kv_plane`` and the ``apply_parity_ok`` gate to the
+JSON line:
+
+    CHAOS_LEASE=0 APPLY_KEYS=64 APPLY_GROUPS=256 APPLY_OPS=200 \
+        python -m etcd_tpu_torch.chaos_run
+
+The membership tier runs on the int32 wire (its words use bits 16-20): an
+explicit CHAOS_WIRE16=1 beside it exits 2. The tiers the port does not run
+yet exit 2 unless left off: CHAOS_PRNG=threefry, ``--preflight``, and
+CHAOS_LEASE=0, the lease tier, which chaos_run.py runs by default
+(chaos_run.py:189): from the command line an unset CHAOS_LEASE is that
+default, so it exits 2 too, and every run names CHAOS_LEASE=0.
 """
 from __future__ import annotations
 
@@ -44,6 +55,8 @@ import time
 
 import torch
 
+from etcd_tpu_torch.device_mvcc import KVSpec
+from etcd_tpu_torch.device_mvcc.fuzz import differential_run
 from etcd_tpu_torch.harness.chaos import run_chaos, summarize_chaos
 from etcd_tpu_torch.types import Spec
 from etcd_tpu_torch.utils.config import CrashConfig, MemberChaosConfig, RaftConfig
@@ -54,7 +67,7 @@ PROG = "chaos_run"
 EPOCH_LEN, HEAL_LEN = 50, 25
 
 # knobs of chaos_run.py whose tier the port does not run: only "off" is taken
-OFF_KNOBS = {"CHAOS_LEASE": "0", "APPLY_KEYS": "0", "CHAOS_PRNG": "threefry"}
+OFF_KNOBS = {"CHAOS_LEASE": "0", "CHAOS_PRNG": "threefry"}
 M = 5      # chaos_run.py's member count
 
 
@@ -102,6 +115,11 @@ def read_knobs(environ=None, on_card: bool = True) -> dict:
     k["blackbox_k"] = env_int(PROG, "CHAOS_BLACKBOX_K", "4", 1, environ=env)
     k["blackbox_window"] = env_int(PROG, "CHAOS_BLACKBOX_WINDOW", "32", 2, environ=env,
                                    hi=256)
+    # the KV apply-plane tier (chaos_run.py:168-175); APPLY_KEYS caps at the
+    # 9-bit op-word key field
+    k["apply_keys"] = env_int(PROG, "APPLY_KEYS", "0", 0, environ=env, hi=511)
+    k["apply_groups"] = env_int(PROG, "APPLY_GROUPS", "256", 1, environ=env)
+    k["apply_ops"] = env_int(PROG, "APPLY_OPS", "200", 1, environ=env)
     k["sync"] = env_bool(PROG, "CHAOS_SYNC", "0", environ=env)
     wire16 = env_bool(PROG, "CHAOS_WIRE16", "1", environ=env)
     if member_on and "CHAOS_WIRE16" in env and wire16:
@@ -153,7 +171,10 @@ def fault_kwargs(k: dict) -> dict:
 
 
 def run(k: dict, device=None, end=None) -> dict:
-    """One chaos run at the knobs ``k``; the JSON line's dict."""
+    """One chaos run at the knobs ``k``, then the KV apply-plane tier when
+    APPLY_KEYS > 0; the JSON line's dict. This is chaos_run.py's run with
+    CHAOS_LEASE=0: the lease tier does not run, and ``lease_safe`` is true,
+    as the reference sets it for that knob."""
     dev = resolve_device(device)
     spec, cfg = spec_and_config(k)
     t0 = time.perf_counter()
@@ -166,10 +187,22 @@ def run(k: dict, device=None, end=None) -> dict:
     rep["platform"] = "gpu" if dev.type == "cuda" else dev.type
     rep.update(summarize_chaos(rep, rounds=k["rounds"], epoch_len=EPOCH_LEN,
                                heal_len=HEAL_LEN, liveness_frac=k["liveness_frac"]))
-    # the lease and KV apply-plane tiers are off (OFF_KNOBS): their gates
-    # hold vacuously, as in chaos_run.py with CHAOS_LEASE=0 and APPLY_KEYS=0
+    # CHAOS_LEASE=0: the reference's gate for a skipped lease tier
     rep["lease_safe"] = True
-    rep["apply_parity_ok"] = True
+    # the KV apply-plane tier (chaos_run.py:333-357): the device revision
+    # store against per-schedule host MVCCStore replays on this device; a
+    # failure of the tier keeps the chaos results and fails the gate
+    if k["apply_keys"] > 0:
+        try:
+            rep["kv_plane"] = differential_run(
+                KVSpec(keys=k["apply_keys"]), groups=k["apply_groups"],
+                ops=k["apply_ops"], seed=k["seed"], device=dev)
+            rep["apply_parity_ok"] = rep["kv_plane"]["parity_ok"]
+        except Exception as e:  # noqa: BLE001 (reported, and fails the exit code)
+            rep["apply_parity_ok"] = False
+            rep["kv_plane_error"] = f"{type(e).__name__}: {e}"[-500:]
+    else:
+        rep["apply_parity_ok"] = True
     return rep
 
 
@@ -179,6 +212,10 @@ def main(argv=None, device=None) -> int:
         knob_error(PROG, f"unknown argument(s): {' '.join(argv)} (etcd_tpu_torch's "
                          "chaos_run takes none, --preflight included; configure via "
                          "CHAOS_* knobs)")
+    if "CHAOS_LEASE" not in os.environ:
+        knob_error(PROG, "CHAOS_LEASE is unset, which chaos_run.py reads as 1 (its "
+                         "lease tier, chaos_run.py:189); etcd_tpu_torch does not run "
+                         "that tier yet: set CHAOS_LEASE=0")
     on_card = device is None or torch.device(device).type == "cuda"
     k = read_knobs(on_card=on_card)
     rep = run(k, device)
@@ -186,7 +223,8 @@ def main(argv=None, device=None) -> int:
     if on_card:
         print(f"{PROG}: peak device memory {torch.cuda.max_memory_allocated()} B "
               "(torch.cuda.max_memory_allocated over the whole run)", file=sys.stderr)
-    ok = rep["safe"] and rep["recovered"] and rep["lively"]
+    ok = (rep["safe"] and rep["recovered"] and rep["lively"] and rep["lease_safe"]
+          and rep["apply_parity_ok"])
     return 0 if ok else 1
 
 

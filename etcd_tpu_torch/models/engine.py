@@ -11,12 +11,17 @@ compaction kernel packs the survivors into the next inbox. Under
 storage form, and ``fleet_chunks`` runs the round over C-slices in turn.
 The chaos tier's crash machinery (``crash_restart_fleet``,
 ``wipe_crashed_traffic``) and its fault windows (``snapshot_window_mask``,
-``member_window_mask``) work on the whole fleet.
+``member_window_mask``) work on the whole fleet. ``build_kv_round`` fuses
+the device MVCC apply plane (etcd_tpu_torch/device_mvcc) into the round,
+and ``KVRound`` runs it as one CUDA graph a round. ``wire_overflow_count``
+audits an int32 wire for values the int16 wire would not carry.
 """
 from __future__ import annotations
 
 import torch
 
+from etcd_tpu_torch.device_mvcc.apply import apply_word, extract_deltas
+from etcd_tpu_torch.device_mvcc.state import KVSpec, KVState
 from etcd_tpu_torch.kernels.compact_wire import compact_wire_carry
 from etcd_tpu_torch.models.raft import node_round
 from etcd_tpu_torch.models.state import (
@@ -29,12 +34,14 @@ from etcd_tpu_torch.models.state import (
 from etcd_tpu_torch.types import (
     ENT_FIELDS,
     ENTRY_CONF_CHANGE,
+    ENTRY_NORMAL,
     MSG_SNAP,
     NONE_ID,
     PR_PROBE,
     PR_SNAPSHOT,
     ROLE_FOLLOWER,
     ROLE_LEADER,
+    WIRE_SPLIT,
     Msg,
     Spec,
     empty_msg,
@@ -83,6 +90,30 @@ def to_wire(m: Msg) -> Msg:
 
 def from_wire(m: Msg) -> Msg:
     return m.map(lambda _, x: x.to(torch.int32) if x.dtype == torch.int16 else x)
+
+
+def wire_overflow_count(spec: Spec, inbox: Msg) -> torch.Tensor:
+    """The int16-wire safety check: the number of values in a flat int32
+    inbox ([from, K*to(*E), C] leaves) that would not survive the int16
+    cast and are not covered by a registered split (types.WIRE_SPLIT), a
+    0-dim int32 tensor on the inbox's device."""
+    if inbox.term.dtype == torch.int16:
+        raise ValueError(
+            "wire_overflow_count audits the PRE-cast int32 wire; run the "
+            "fleet with wire_int16=False and check each round's inbox")
+    lo, hi = -(2 ** 15), 2 ** 15 - 1
+    t = inbox.type.to(torch.int32)                 # [M, K*M, C]
+    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    for name, x in inbox.items():
+        if x.dtype != torch.int32:
+            continue
+        tt = t.repeat_interleave(spec.E, dim=1) if name in ENT_FIELDS else t
+        bad = (x < lo) | (x > hi)
+        for f, msg_type in WIRE_SPLIT:
+            if f == name:
+                bad = bad & (tt != msg_type)
+        total = total + bad.sum()
+    return total.to(torch.int32)
 
 
 def empty_inbox(spec: Spec, C: int, wire_int16: bool = False,
@@ -337,6 +368,120 @@ def build_round(cfg: RaftConfig, spec: Spec, with_drop_count: bool = False):
         return state, inbox
 
     return round_fn
+
+
+def build_kv_round(cfg: RaftConfig, spec: Spec, kvspec: KVSpec, member: int = 0):
+    """Round step with the device MVCC apply plane fused in
+    (etcd_tpu/models/engine.py build_kv_round): the consensus round, then up
+    to Spec.A committed entry words taken from ``member``'s apply frontier
+    into a ``KVState`` fleet, then the watch-delta scan.
+
+    Returns kv_round_fn(state, inbox, kv, do_apply, *round_args) ->
+    (state, inbox, kv, delta). ``do_apply`` is a runtime operand ([C] bool,
+    or one bool): False leaves the KV fleet as it was, so one program (one
+    CUDA graph, see KVRound) serves both apply modes.
+
+    The plane consumes the entries in (kv.applied_idx, state.applied[member]],
+    the entries the node itself just applied to its hash chain, so it moves
+    at the same <= A-per-round cadence. A word is lost only once a newer
+    entry overwrites its ring slot (idx <= last_index - L); lost words are
+    counted in kv.skipped and the cursor jumps. A member that installs a
+    peer snapshot keeps its old ring bytes under new cursors; ring apply
+    moves ``applied`` by at most A a round, so a larger jump is an install,
+    and the lane freezes with the sticky kv.desynced set rather than replay
+    stale words. Conf-change and empty entries decode as NOPs.
+
+    The round writes into the state it is given under fleet_chunks > 1, so
+    the bound member's pre-round ``applied`` is copied before it runs. The
+    KV update is functional: the returned ``kv`` and ``delta`` are new
+    tensors. KV words use bits 0-27, so the plane needs the int32 wire, and
+    it reads the unpacked fleet and the dense wire."""
+    if cfg.wire_int16:
+        raise ValueError(
+            "build_kv_round needs the int32 wire (KV op words use bits "
+            "0-27); construct the engine with wire_int16=False")
+    if cfg.packed_state or cfg.compact_wire:
+        raise ValueError(
+            "build_kv_round reads the unpacked fleet (log ring, applied "
+            "cursor); construct it with packed_state=False and "
+            "compact_wire=False")
+    base = build_round(cfg, spec)
+    L, A = spec.L, spec.A
+
+    def kv_round_fn(state, inbox, kv: KVState, do_apply, *args):
+        pre_applied = state.applied[member].clone()          # [C]
+        rev_floor = kv.current_rev.clone()
+        state, inbox = base(state, inbox, *args)
+        do_apply = torch.as_tensor(do_apply, dtype=torch.bool,
+                                   device=kv.current_rev.device).expand(rev_floor.shape)
+        applied = state.applied[member]                      # [C]
+        ld = state.log_data[member]                          # [L, C]
+        lt = state.log_type[member]
+        desynced = kv.desynced | (do_apply & (applied - pre_applied > A))
+        live = do_apply & ~desynced
+        # ring-overwrite overrun: a slot is gone only once a newer entry
+        # lands on it; count the lost words and jump the cursor
+        floor = torch.clamp(state.last_index[member] - L, min=0)
+        lost = torch.where(live, torch.clamp(floor - kv.applied_idx, min=0), 0)
+        kv = kv.replace(desynced=desynced, skipped=kv.skipped + lost,
+                        applied_idx=torch.where(live, torch.maximum(kv.applied_idx, floor),
+                                                kv.applied_idx))
+        for _ in range(A):
+            idx = kv.applied_idx + 1
+            can = live & (idx <= applied)
+            slot = ((idx - 1) % L).long().unsqueeze(0)       # [1, C]
+            word = ld.gather(0, slot)[0]
+            etype = lt.gather(0, slot)[0]
+            word = torch.where(can & (etype == ENTRY_NORMAL), word, 0)
+            kv = apply_word(kvspec, kv, word, can)
+            kv = kv.replace(applied_idx=torch.where(can, idx, kv.applied_idx))
+        return state, inbox, kv, extract_deltas(kvspec, rev_floor, kv)
+
+    return kv_round_fn
+
+
+class KVRound:
+    """The KV round as a program served once a round (JAX's
+    ``_jitted_kv_round``): ``rnd(state, inbox, kv, do_apply, *round_args)
+    -> (state, inbox, kv, delta)``. On a CUDA device each call is one
+    replay of a CUDA graph of ``build_kv_round``'s round (parallel/mesh.py
+    CapturedStep: the first call runs one eager warm-up round and captures),
+    whose static carry holds the state, inbox, KV fleet, delta, the
+    ``do_apply`` lanes and the round inputs, so one graph serves both apply
+    modes. The results are that carry: the next call overwrites them, so a
+    caller reads them (or clones them) before it. On the CPU each call is
+    the eager round."""
+
+    def __init__(self, cfg: RaftConfig, spec: Spec, kvspec: KVSpec, member: int = 0):
+        # parallel/mesh.py imports this module
+        from etcd_tpu_torch.parallel.mesh import CapturedStep
+
+        self.fn = build_kv_round(cfg, spec, kvspec, member)
+        self.kvspec = kvspec
+        self.graph = CapturedStep(self._step)
+
+    def _step(self, carry):
+        state, inbox, kv, _, do_apply, *args = carry
+        return (*self.fn(state, inbox, kv, do_apply, *args), do_apply, *args)
+
+    def __call__(self, state, inbox, kv: KVState, do_apply, *args):
+        dev = kv.current_rev.device
+        if dev.type == "cpu":
+            return self.fn(state, inbox, kv, do_apply, *args)
+        if dev.type != "cuda":
+            raise ValueError(f"KVRound: no driver for device {dev}")
+        C = kv.current_rev.shape[0]
+        do_apply = torch.as_tensor(do_apply, dtype=torch.bool, device=dev).expand(C)
+        carry = self.graph.carry
+        # the delta slot of the carry is written, never read: the first call
+        # fills it with a delta of the right shape
+        delta = carry[3] if carry is not None else extract_deltas(
+            self.kvspec, kv.current_rev, kv)
+        out = self.graph((state, inbox, kv, delta, do_apply.contiguous(), *args))
+        return out[:4]
+
+    def release(self) -> None:
+        self.graph.release()
 
 
 class RaftEngine:

@@ -4,7 +4,8 @@ A small ``FleetMetrics`` of 0-dim int32 tensors stays on the fleet's device
 and is updated by reductions inside the metered round; the host reads it
 once per report (``metrics_report``). ``CrashMetrics`` are the chaos
 tier's crash and membership counters (``crash_metrics_report``).
-``fleet_summary`` is the whole-fleet status aggregate. The counters are
+``fleet_summary`` is the whole-fleet status aggregate, ``basic_status``
+one lane's raft.Status. The counters are
 int32 like the JAX package's, so a window must be short enough not to wrap
 (both reports raise if one has). ``build_metered_round`` also carries the
 telemetry plane (models/telemetry.py) and the black-box event ring
@@ -20,7 +21,14 @@ from etcd_tpu_torch.models.blackbox import blackbox_update, msg_activity, snapsh
 from etcd_tpu_torch.models.engine import build_round
 from etcd_tpu_torch.models.state import NodeState, unpack_fleet
 from etcd_tpu_torch.models.telemetry import telemetry_update
-from etcd_tpu_torch.types import ROLE_LEADER, Spec, TensorStruct
+from etcd_tpu_torch.types import (
+    PR_PROBE,
+    PR_REPLICATE,
+    PR_SNAPSHOT,
+    ROLE_LEADER,
+    Spec,
+    TensorStruct,
+)
 from etcd_tpu_torch.utils.config import RaftConfig
 from etcd_tpu_torch.utils.device import resolve_device
 
@@ -202,6 +210,8 @@ def metrics_report(metrics: FleetMetrics, elapsed_s: float | None = None,
 
 _ROLE_NAMES = {0: "StateFollower", 1: "StatePreCandidate",
                2: "StateCandidate", 3: "StateLeader"}
+_PR_NAMES = {PR_PROBE: "StateProbe", PR_REPLICATE: "StateReplicate",
+             PR_SNAPSHOT: "StateSnapshot"}
 
 
 def fleet_summary(state: NodeState) -> dict:
@@ -237,3 +247,36 @@ def fleet_summary(state: NodeState) -> dict:
         "groups_with_leader": r[10],
         "groups_multi_leader": r[11],
     }
+
+
+def basic_status(state: NodeState, spec: Spec, m: int, c: int = 0) -> dict:
+    """raft.Status for one lane (m, c) of the fleet: the BasicStatus fields
+    plus the leader's progress map (status.go:26-76). One host read of the
+    lane."""
+    lane = {k: v[m, ..., c].tolist() for k, v in state.items()}
+    role = lane["role"]
+    out = {
+        "id": m,
+        "term": lane["term"],
+        "vote": lane["vote"],
+        "commit": lane["commit"],
+        "applied": lane["applied"],
+        "lead": lane["lead"],
+        "raft_state": _ROLE_NAMES[role],
+    }
+    if role == ROLE_LEADER:
+        out["progress"] = {
+            i: {
+                "match": lane["match"][i],
+                "next": lane["next_idx"][i],
+                "state": _PR_NAMES[lane["pr_state"][i]],
+                "is_learner": lane["learners"][i] or lane["learners_next"][i],
+                "recent_active": lane["recent_active"][i],
+                "pending_snapshot": lane["pending_snapshot"][i],
+                "inflight": lane["infl_count"][i],
+            }
+            for i in range(spec.M)
+            if lane["voters"][i] or lane["voters_out"][i] or lane["learners"][i]
+            or lane["learners_next"][i]
+        }
+    return out

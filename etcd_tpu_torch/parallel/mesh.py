@@ -14,6 +14,7 @@ a plain loop. The multi-device mesh is not ported yet.
 from __future__ import annotations
 
 import collections
+import gc
 
 import torch
 
@@ -70,9 +71,19 @@ class CapturedStep:
         torch.cuda.current_stream().wait_stream(side)
         tree_load(self.carry, carry)     # the warm-up may write into the carry
         before = collections.Counter(LAUNCHES)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=self.pool):
-            tree_load(self.carry, self.step(self.carry))
+        # a collection inside the capture may free another graph, whose
+        # destruction is a CUDA call that invalidates the capture: collect
+        # now and hold the collector off until the capture ends
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, pool=self.pool):
+                tree_load(self.carry, self.step(self.carry))
+        finally:
+            if collecting:
+                gc.enable()
         self.captured = collections.Counter(LAUNCHES)
         self.captured.subtract(before)
 

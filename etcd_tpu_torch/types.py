@@ -63,6 +63,12 @@ CC_REMOVE_NODE = 1
 CC_UPDATE_NODE = 2
 CC_ADD_LEARNER = 3
 
+# int16-wire exemptions: (field, message type) pairs whose values may
+# exceed int16 because the receiver rebuilds them from a split
+# (engine.wire_overflow_count): MsgSnap's commit carries the 32-bit applied
+# hash, its high half riding reject_hint
+WIRE_SPLIT = {("commit", MSG_SNAP)}
+
 
 @dataclasses.dataclass(frozen=True)
 class Spec:

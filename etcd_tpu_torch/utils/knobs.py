@@ -47,3 +47,11 @@ def env_float(prog: str, name: str, default: str, lo: float | None = None,
         span = f"[{lo}, {hi}]" if hi is not None else f">= {lo}"
         knob_error(prog, f"{name}={raw} outside {span}")
     return v
+
+
+def env_str(prog: str, name: str, default: str, choices: tuple, environ=None) -> str:
+    """A knob with a fixed set of values (a typo must not select another)."""
+    raw = (os.environ if environ is None else environ).get(name, default)
+    if raw not in choices:
+        knob_error(prog, f"{name}={raw!r} is not one of {'/'.join(choices)}")
+    return raw

@@ -265,6 +265,9 @@ def test_bench_main_prints_bench_py_keys(monkeypatch, capsys):
     ({"BENCH_C": "0"}, [], "BENCH_C"),
     ({"BENCH_PACKED": "yes"}, [], "BENCH_PACKED"),
     ({}, ["--preflight"], "preflight"),
+    ({"APPLY_MODE": "fast"}, [], "APPLY_MODE"),
+    ({"APPLY_KEYS": "512"}, [], "APPLY_KEYS"),
+    ({"APPLY_C": "0"}, [], "APPLY_C"),
 ])
 def test_bench_refuses_what_it_cannot_run(monkeypatch, capsys, env, argv, match):
     for k, v in env.items():

@@ -231,7 +231,8 @@ def test_cluster_planes_only_read_and_record_the_rounds():
 def test_chaos_run_with_the_black_box_prints_forensics(monkeypatch, capsys):
     monkeypatch.setattr(chaos_run, "EPOCH_LEN", 2)
     monkeypatch.setattr(chaos_run, "HEAL_LEN", 2)
-    for k, v in (("CHAOS_C", "4"), ("CHAOS_ROUNDS", "4"), ("CHAOS_BLACKBOX", "1"),
+    for k, v in (("CHAOS_LEASE", "0"), ("CHAOS_C", "4"), ("CHAOS_ROUNDS", "4"),
+                 ("CHAOS_BLACKBOX", "1"),
                  ("CHAOS_BLACKBOX_K", "2"), ("CHAOS_BLACKBOX_WINDOW", "8"),
                  ("TELEM_EVERY", "2")):
         monkeypatch.setenv(k, v)

@@ -376,8 +376,9 @@ def _jax_driver_keys() -> set:
 def test_driver_json_keys_are_chaos_runs(monkeypatch, capsys):
     monkeypatch.setattr(chaos_run, "EPOCH_LEN", 2)
     monkeypatch.setattr(chaos_run, "HEAL_LEN", 2)
-    for k in list(chaos_run.OFF_KNOBS) + ["CHAOS_C", "CHAOS_ROUNDS"]:
+    for k in list(chaos_run.OFF_KNOBS) + ["APPLY_KEYS", "CHAOS_C", "CHAOS_ROUNDS"]:
         monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("CHAOS_LEASE", "0")
     monkeypatch.setenv("CHAOS_C", "4")
     monkeypatch.setenv("CHAOS_ROUNDS", "4")
     rc = chaos_run.main([], device="cpu")
@@ -415,7 +416,8 @@ EXIT_2 = {
     "CHAOS_BLACKBOX_K=0": {"CHAOS_BLACKBOX_K": "0"},
     "CHAOS_BLACKBOX_WINDOW=1": {"CHAOS_BLACKBOX_WINDOW": "1"},
     "CHAOS_BLACKBOX_WINDOW=257": {"CHAOS_BLACKBOX_WINDOW": "257"},
-    "APPLY_KEYS=64": {"APPLY_KEYS": "64"},
+    "APPLY_KEYS=512": {"APPLY_KEYS": "512"},
+    "APPLY_GROUPS=0": {"APPLY_GROUPS": "0"},
     "CHAOS_PRNG=rbg": {"CHAOS_PRNG": "rbg"},
     "CHAOS_DROP=1.5": {"CHAOS_DROP": "1.5"},
     "CHAOS_DELAY=nan": {"CHAOS_DELAY": "nan"},
@@ -429,6 +431,17 @@ def test_driver_exits_2_on_knobs_it_cannot_honour(case):
     with pytest.raises(SystemExit) as e:
         chaos_run.read_knobs(EXIT_2[case])
     assert e.value.code == 2
+
+
+def test_driver_exits_2_with_chaos_lease_unset(monkeypatch, capsys):
+    """chaos_run.py reads an unset CHAOS_LEASE as 1 and runs its lease tier
+    (chaos_run.py:189); the port does not run that tier, so from the command
+    line it refuses rather than report a lease_safe it never checked."""
+    monkeypatch.delenv("CHAOS_LEASE", raising=False)
+    with pytest.raises(SystemExit) as e:
+        chaos_run.main([], device="cpu")
+    assert e.value.code == 2
+    assert "CHAOS_LEASE=0" in capsys.readouterr().err
 
 
 def test_driver_exits_2_on_preflight():

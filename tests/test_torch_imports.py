@@ -51,14 +51,15 @@ def test_imports_and_runs_a_round_with_jax_blocked():
     harness and the Cluster included) imports, and on the CPU one round of
     the settle program, one of bench.py's packed, deferred and sparse
     steady program and one of the full program (chaos_run's config, every
-    local step) run at C=2, a 3-member Cluster elects a leader, and a
+    local step) run at C=2, a 3-member Cluster elects a leader, a
     two-round chaos run with crash and membership faults injects both and
-    carries the telemetry plane and the black box."""
+    carries the telemetry plane and the black box, a DeviceBackedStore
+    serves a put, the differential fuzz holds, and a KV round runs."""
     code = "\n".join([
         "import sys",
         "for m in ('jax', 'jaxlib', 'flax', 'etcd_tpu'):",
         "    sys.modules[m] = None",
-        "import importlib, pkgutil, torch",
+        "import dataclasses, importlib, pkgutil, torch",
         "import etcd_tpu_torch.models.telemetry, etcd_tpu_torch.models.blackbox",
         "torch.set_num_threads(1)",
         "import etcd_tpu_torch",
@@ -102,6 +103,21 @@ def test_imports_and_runs_a_round_with_jax_blocked():
         "n = rep['rounds']    # one epoch a round, the WaitHealth epochs included",
         "assert rep['telemetry']['rounds'] == n and len(rep['timeline']) == n, rep",
         "assert rep['forensics']['rounds_observed'] == n, rep",
+        "from etcd_tpu_torch.device_mvcc import DevicePlane, KVSpec, init_kv, scheme",
+        "from etcd_tpu_torch.device_mvcc.fuzz import differential_run",
+        "from etcd_tpu_torch.server.mvcc import DeviceBackedStore",
+        "from etcd_tpu_torch.server.watch import events_from_delta",
+        "s = DeviceBackedStore(DevicePlane(KVSpec(keys=4), 2, device='cpu'), lane=1)",
+        "t = s.write_txn(); t.put(scheme.key_bytes(1), scheme.encode_value(3)); t.end()",
+        "assert s.current_rev == 2 and s.range(scheme.key_bytes(1))[1] == 1",
+        "assert differential_run(KVSpec(keys=4), 4, 10, device='cpu')['parity_ok']",
+        "from etcd_tpu_torch.models.engine import build_kv_round",
+        "kvc = dataclasses.replace(full, wire_int16=False)",
+        "st = init_fleet(spec, 2, device='cpu'); ib = empty_inbox(spec, 2, device='cpu')",
+        "st, ib, kv, d = build_kv_round(kvc, spec, KVSpec(keys=4))(",
+        "    st, ib, init_kv(KVSpec(keys=4), 2, 'cpu'), True, z2, zp, zp, z2, hup, no,",
+        "    torch.ones((5, 5, 2), dtype=torch.bool))",
+        "assert events_from_delta(d, 0) == [] and int(kv.current_rev.min()) == 1",
         "assert not any(m in sys.modules and sys.modules[m] is not None",
         "               for m in ('jax', 'flax', 'etcd_tpu'))",
         "print('ok')",
@@ -128,6 +144,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         zero_metrics()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bench.run(bench.read_knobs({"BENCH_C": "2"}))
+    from etcd_tpu_torch.device_mvcc import DevicePlane, KVSpec, init_kv
+    from etcd_tpu_torch.device_mvcc.fuzz import differential_run
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_kv(KVSpec(keys=4), 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DevicePlane(KVSpec(keys=4), 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        differential_run(KVSpec(keys=4), 2, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench.apply_run(bench.read_apply_knobs({"APPLY_MODE": "device", "APPLY_C": "2"}))
 
 
 UNPORTED = {

@@ -487,6 +487,7 @@ def test_driver_json_keys_are_chaos_runs_on_the_new_tiers(monkeypatch, capsys, t
     monkeypatch.setattr(chaos_run, "HEAL_LEN", 2)
     for k in ("CHAOS_CRASH", "CHAOS_MEMBER", "CHAOS_WIRE16", "CHAOS_INIT_VOTERS"):
         monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("CHAOS_LEASE", "0")
     monkeypatch.setenv("CHAOS_C", "4")
     monkeypatch.setenv("CHAOS_ROUNDS", "4")
     monkeypatch.setenv("CHAOS_CRASH", "0.2")
