@@ -44,7 +44,8 @@ Phases, each printing its lines:
   4. the bench path at full width: etcd_tpu_torch.bench's run at its
      defaults (C = 1,048,576: settle, pack, 16 rounds x (1 + 3 timed) as one
      CUDA graph, the commit check, the observability pass with TELEM=1 and
-     BENCH_BLACKBOX=1: the metered, bare and ring probes), printing its JSON
+     BENCH_BLACKBOX=1: the metered, bare and ring probes, each the best of
+     2 passes of 8 rounds here, 3 in bench.py), printing its JSON
      line, with the launches counted around it (the graph's recorded
      launches times its replays, plus the eager ones: the planes add none),
      its peak memory by part, telemetry_overhead_pct (at most 10, bench.py's
@@ -55,7 +56,8 @@ Phases, each printing its lines:
      (the main path's own input) against its plain version and its bound, a
      device profile of two eager rounds (launches per round, device busy
      time, idle share, device time under named functions), and of one replay
-     of a fresh graph of 16 rounds, with that graph's peak memory;
+     of a fresh graph of 8 rounds, with that graph's peak memory (8 eager
+     rounds and a graph of 8, not 16: a cut);
   6. the chaos path: etcd_tpu_torch.chaos_run's network tier at
      CHAOS_C = 262,144, CHAOS_ROUNDS = 75 (a fault epoch of 50 rounds, a
      heal epoch of 25, and the WaitHealth heal epochs it needs) and its
@@ -65,7 +67,7 @@ Phases, each printing its lines:
      APPLY_OPS=200), its JSON line and verdicts (safe, recovered, lively,
      lease_safe, apply_parity_ok), its flight-recorder timeline (monotone per counter, none
      wrapped), wall time, launches and peak memory; then a device profile of
-     2 eager fault rounds with both planes (device busy time, idle share,
+     one eager fault round with both planes (device busy time, idle share,
      launches per round, device time under tick_timers, process_message,
      apply_round, the fault draws, _merge_delayed, check_invariants, the
      kernel, telemetry_update, blackbox_update and msg_activity);
@@ -79,16 +81,17 @@ Phases, each printing its lines:
      0.005, CHAOS_SNAP_BOOST = 200, CHAOS_MEMBER_BOOST = 4, int32 wire) at
      C = 262,144 in 2 chunks, one fault and one heal epoch of 25 rounds, the
      same lines plus the membership counters, the kernel timed on an inbox
-     carrying conf-change words, and a device profile of 2 eager fault
-     rounds on one chunk (pre_round, crash_restart_fleet,
+     carrying conf-change words, and a device profile of one eager fault
+     round on one chunk (pre_round, crash_restart_fleet,
      check_recovery_invariants, inject_member); then the same knobs at
      C = 65,536 for 75 rounds with TELEM=0, the report held key for key to
      the reference's committed one (CHAOS_MEMBER_65K_PIN.json, which holds
      no plane keys);
   8. the served-writes path: etcd_tpu_torch.bench's APPLY_MODE=device at its
-     defaults (C = 262,144 in 2 chunks, 32 rounds, 64 keys; each round one
+     defaults but 16 timed rounds, not 32 (a cut) (C = 262,144 in 2 chunks,
+     64 keys; each round one
      replay of KVRound's CUDA graph and one read of the delta count), its
-     JSON line, every write served (8,388,608), the compact_inbox launches
+     JSON line, every write served (4,194,304), the compact_inbox launches
      (rounds x chunks + the warm-up round), peak memory, the graph capture's
      time apart, every lane's kv_digest against a host MVCCStore replay of
      the proposed words, the kernel timed on the compact_inbox input of an eager
@@ -96,7 +99,36 @@ Phases, each printing its lines:
      of 2 graph replays at full width and of 2 eager rounds on one chunk,
      with the device time under apply_word and extract_deltas); then
      APPLY_MODE=both at APPLY_C = 4,096 (half APPLY_r08.json's size), both modes
-     served and digests_match.
+     served and digests_match;
+  9. the server layer: etcd_tpu_torch/server/kvserver.py EtcdCluster on the
+     torch Cluster, each step one CUDA-graph replay of the round: (a) the
+     scripted session of etcd_tpu_torch/harness/server_session.py at
+     EtcdCluster's defaults (3 members, the Spec defaults; puts with and
+     without a lease, ranges at the head and at an older revision, a txn on
+     both branches, a watch and its events, delete_range, compact, lease
+     grant, keepalive, time_to_live, expiry through advance_lease_clock,
+     revoke, a Client Mutex lock and unlock), every answer and each
+     member's hash_kv, revision, leases and raft term, commit and applied
+     held key for key to the reference's (SERVER_SESSION_PIN.json), its
+     steps and ms per step; then from its end state a ticking round with a
+     proposal as the Cluster's graph replay and as build_round run
+     eagerly, every state and inbox leaf equal, with the tensor ops a step
+     counted; (b) the lease tier (etcd_tpu_torch/harness/chaos_lease.py)
+     at the tiny size (132 steps in the reference), the report held key
+     for key to CHAOS_LEASE_PIN.json's, with its steps and ms per step.
+Only with ``--phases 9c`` (a call of its own, about 22 minutes): 9c. the
+runner tier at the tiny size (330 steps, moved here from 9b for the
+script's time), held to CHAOS_LEASE_PIN.json's "tiny"; then
+etcd_tpu_torch.chaos_run at its defaults with CHAOS_LEASE unset, as
+``python -m etcd_tpu_torch.chaos_run`` runs it (the network tier at C =
+262,144, then the lease and runner tiers at their defaults in their
+subprocess on the card), the tiers' time against the reference's 1,800 s
+limit and their report held key for key to CHAOS_LEASE_PIN.json's.
+Cuts that keep the script inside its 1,200 s limit (PERF.md section 4):
+phases 5, 6 and 7b run at C = 262,144 or 131,072, not 1,048,576, phase 7b
+in epochs of 25 rounds, phases 6 and 7b profile one eager fault round,
+phase 4's probes take the best of 2 passes, phase 5 runs 8 rounds, phase
+8 16 timed rounds, and phase 9b the lease tier alone.
 Then a line with the kernels' JSON record (the one kernel: at its carry
 site, and at compact_inbox on the network, crash, membership and
 served-writes paths),
@@ -742,6 +774,11 @@ def free_card():
     torch.cuda.empty_cache()
 
 
+# phase 4's observability probes: the best of 2 passes of 8 rounds each,
+# not bench.py's 3 (cut to keep the script's time for phase 9)
+PHASE4_PROBE_PASSES = 2
+
+
 def phase_bench(card):
     """etcd_tpu_torch.bench's main path at its defaults, with the launches
     made on it: the eager ones, plus the graph's recorded launches once per
@@ -755,7 +792,12 @@ def phase_bench(card):
     knobs = bench.read_knobs({})
     reset_launches()
     t0 = time.perf_counter()
-    res = bench.run(knobs, "cuda")
+    passes = bench.PROBE_PASSES
+    bench.PROBE_PASSES = PHASE4_PROBE_PASSES
+    try:
+        res = bench.run(knobs, "cuda")
+    finally:
+        bench.PROBE_PASSES = passes
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     scan = res.scan
@@ -780,9 +822,9 @@ def phase_bench(card):
         raise AssertionError(f"the graph holds {dict(scan.captured)} launches for "
                              f"{knobs.inner} rounds; compact_wire must be once a round")
     # settle (its rounds + 1), the graph's eager warm-up round and its
-    # replays, and the three probes' 1 + 3 x 8 metered, bare and ring rounds:
+    # replays, and the three probes' 1 + 2 x 8 metered, bare and ring rounds:
     # the planes launch no compaction of their own
-    probes = 3 * (1 + bench.PROBE_PASSES * bench.METERED_ROUNDS)
+    probes = 3 * (1 + PHASE4_PROBE_PASSES * bench.METERED_ROUNDS)
     want = res.settle_rounds + 1 + 1 + knobs.inner * scan.replays + probes
     if launches.get("compact_wire") != want:
         raise AssertionError(f"compact_wire launched {launches} times on the bench "
@@ -804,7 +846,7 @@ def phase_bench(card):
     return res, launches
 
 
-def phase_compare(res, card, rounds=16, groups=FULL_GROUPS // 8):
+def phase_compare(res, card, rounds=8, groups=FULL_GROUPS // 8):
     """The bench's steady program run eagerly on the first ``groups`` groups
     of its fleet (cut from C = 1,048,576 to 131,072 to keep the script's
     time for the chaos paths), the kernel timed on the outbox of its last
@@ -884,6 +926,12 @@ PROFILED_MEMBER = (("etcd_tpu_torch.harness.chaos", "pre_round"),
                    ("etcd_tpu_torch.models.raft", "process_message"),
                    ("etcd_tpu_torch.models.raft", "compact_inbox_slots"),
                    ("etcd_tpu_torch.utils.prng", "threefry2x32"))
+
+# the eager fault rounds a chaos path's profile runs, and by default its
+# kernel timing's warm run, whose last round's compact_inbox input is timed
+# (cut from 2 to keep the script's time for phase 9; phase 7b warms 2, as
+# only the second round's input carries the first round's conf changes)
+EAGER_ROUNDS = 1
 
 # the chaos paths: phase -> (chaos_run knobs, report keys the phase's line
 # prints)
@@ -986,16 +1034,17 @@ def epoch_runner(epoch, spec, carry, ops):
 
 
 def phase_chaos_path(card, phase, rounds=CHAOS_ROUNDS, lens=None, profiled=None,
-                     full_profile=False, time_kernel=False):
+                     full_profile=False, time_kernel=False, warm_rounds=EAGER_ROUNDS):
     """One chaos path, CHAOS_PATHS[phase]:
     etcd_tpu_torch.chaos_run for ``rounds`` rounds (each a replay of its
     CUDA graph; fault and heal epochs of chaos_run's 50 and 25 rounds, or of
     ``lens``) with the launches read around it, its JSON line, its
     verdicts (safe, recovered, lively: all required), wall time and peak
-    memory. Then, on one chunk of its end state, eagerly: with
-    ``time_kernel`` one fault round whose compact_inbox input is kept, and
-    the kernel timed on it against its plain version; with ``profiled`` a
-    device profile of 2 fault rounds with those named functions; with
+    memory. Then, on one chunk of its end state, eagerly: ``warm_rounds``
+    fault rounds, the last one's compact_inbox input kept, and with
+    ``time_kernel`` the kernel timed on it against its plain version; with
+    ``profiled`` a device profile of EAGER_ROUNDS fault rounds with those
+    named functions; with
     ``full_profile`` first a profile of the graph replay of 2 fault rounds
     at full width (about a million kernels, minutes of the profiler's own
     processing). Returns (launches, report, kernel record or None, the
@@ -1109,8 +1158,11 @@ def phase_chaos_path(card, phase, rounds=CHAOS_ROUNDS, lens=None, profiled=None,
     del carry
     free_card()
     one = dataclasses.replace(cfg, fleet_chunks=1)
-    eager = epoch_runner(build_chaos_epoch(one, spec, 2, graph=False, **tiers), spec,
-                         part, ops)
+
+    def eager_epoch(n):
+        return epoch_runner(build_chaos_epoch(one, spec, n, graph=False, **tiers), spec,
+                            part, ops)
+    eager = eager_epoch(warm_rounds)
     seen = {}
     real = raft.compact_inbox_slots
 
@@ -1142,8 +1194,9 @@ def phase_chaos_path(card, phase, rounds=CHAOS_ROUNDS, lens=None, profiled=None,
         del msgs
     seen.clear()
     if profiled:
-        profile_rounds(f"phase {phase} profile of 2 fault rounds (eager, one chunk, "
-                       f"C={csz})", eager, 2, card, profiled)
+        profile_rounds(f"phase {phase} profile of {EAGER_ROUNDS} fault round (eager, one "
+                       f"chunk, C={csz})", eager_epoch(EAGER_ROUNDS), EAGER_ROUNDS, card,
+                       profiled)
     free_card()
     return launches, rep, record, _verdicts(phase, k, bad)
 
@@ -1156,6 +1209,9 @@ def _verdicts(phase, k, bad) -> list[str]:
     return [f"phase {phase}: not {bad}"] if bad else []
 
 
+# phase 8's timed rounds (cut from APPLY_ROUNDS' 32 to keep the script's time
+# for phase 9)
+SERVED_ROUNDS = 16
 # phase 8's second run: APPLY_MODE=both at half APPLY_r08.json's 8,192 groups,
 # so that the whole script keeps inside its time limit (PERF.md section 4)
 SERVED_BOTH_C = 4096
@@ -1172,8 +1228,8 @@ PROFILED_KV = (("etcd_tpu_torch.models.raft", "process_message"),
 def phase_served(card, profile=False):
     """bench.py's served-writes path through etcd_tpu_torch.bench's
     apply_run (what ``python -m etcd_tpu_torch.bench`` runs for APPLY_MODE):
-    APPLY_MODE=device at its defaults (C = 262,144 in 2 chunks, 32 rounds,
-    64 keys), its JSON line, every write served, the compact_inbox launches
+    APPLY_MODE=device at its defaults but SERVED_ROUNDS timed rounds (C =
+    262,144 in 2 chunks, 64 keys), its JSON line, every write served, the compact_inbox launches
     (settle + timed + drain rounds, times the chunks, plus the graph's
     warm-up round), every lane's kv_digest against a host MVCCStore replay
     of the proposed words, and the kernel timed on the compact_inbox input of
@@ -1191,7 +1247,8 @@ def phase_served(card, profile=False):
     from etcd_tpu_torch.models import raft
     from etcd_tpu_torch.models.engine import build_kv_round
 
-    knobs = bench.read_apply_knobs({"APPLY_MODE": "device"})
+    knobs = bench.read_apply_knobs({"APPLY_MODE": "device",
+                                     "APPLY_ROUNDS": str(SERVED_ROUNDS)})
     free_card()
     reset_launches()
     t0 = time.perf_counter()
@@ -1297,6 +1354,244 @@ def phase_served(card, profile=False):
     return record, [f"phase 8: {f}" for f in failed]
 
 
+SESSION_PIN = "SERVER_SESSION_PIN.json"
+LEASE_PIN = "CHAOS_LEASE_PIN.json"
+
+
+def count_ops(fn):
+    """``fn()`` with every tensor op that is not a view counted (on the card
+    each launches one kernel: the profiler counted 134,953 kernels a step
+    at M = 3 where the CPU count is 134,269). Returns (result, count)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not getattr(func, "is_view", False):
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        out = fn()
+    return out, Count.n
+
+
+def counted_steps():
+    """Count every Cluster.step until the returned restore() is called."""
+    from etcd_tpu_torch.harness.cluster import Cluster
+
+    real, box = Cluster.step, [0]
+
+    def step(self, *a, **k):
+        box[0] += 1
+        return real(self, *a, **k)
+
+    Cluster.step = step
+
+    def restore():
+        Cluster.step = real
+        return box[0]
+    return restore
+
+
+def pin_differ(got: dict, want: dict) -> list:
+    """The keys on which two reports differ (through JSON, as the pin was
+    written)."""
+    got = json.loads(json.dumps(got))
+    return sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+
+
+def tiny_tier(name):
+    """One of chaos_lease's tiers ("lease" or "runner") at the tiny size
+    (chaos_lease.SIZES["tiny"]) on the card: (report, steps, seconds)."""
+    import torch
+
+    from etcd_tpu_torch import concurrency
+    from etcd_tpu_torch.harness import chaos_lease
+
+    lease_kw, runner_kw = chaos_lease.SIZES["tiny"]
+    restore = counted_steps()
+    t0 = time.perf_counter()
+    try:
+        if name == "lease":
+            rep = chaos_lease.run_lease_chaos(**lease_kw)
+        else:
+            concurrency.Session._next_id = 1000   # as in a fresh process
+            rep = chaos_lease.run_runner_chaos(**runner_kw)
+        torch.cuda.synchronize()
+    finally:
+        n = restore()
+    return rep, n, time.perf_counter() - t0
+
+
+def phase_server(card):
+    """Phase 9, the server layer (etcd_tpu_torch/server/kvserver.py
+    EtcdCluster on the torch Cluster, each step one CUDA-graph replay):
+    (a) the scripted session of harness/server_session.py at EtcdCluster's
+    defaults (3 members, the Spec defaults), every answer and each member's
+    hash_kv, revision, leases and raft term, commit and applied held key for
+    key to the reference's in SERVER_SESSION_PIN.json; then graph == eager:
+    from the session's end state a ticking round with a proposal as the
+    Cluster's graph replay and as build_round run eagerly on copies, every
+    state and inbox leaf equal, the eager round's ops counted; (b) the lease
+    tier (harness/chaos_lease.py) at the tiny size, its report held key for
+    key to CHAOS_LEASE_PIN.json's "tiny" (the runner tier's tiny run moved
+    to phase 9c's call for the script's time). Prints each part's steps, ms
+    per step and time. Returns the failures."""
+    import torch
+
+    from etcd_tpu_torch.harness import server_session
+    from etcd_tpu_torch.server.kvserver import EtcdCluster
+
+    failed = []
+    with open(SESSION_PIN) as f:
+        want = json.load(f)["session"]
+    t0 = time.perf_counter()
+    ec = EtcdCluster(n_members=3)
+    got = json.loads(json.dumps(server_session.run_session(ec, server_session.port_api())))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    differ = [r[0] for r, w in zip(got["responses"], want["responses"]) if r != w]
+    if len(got["responses"]) != len(want["responses"]):
+        differ.append("the number of responses")
+    differ += [f"state {k}" for k in pin_differ(got["state"], want["state"])]
+    if got["steps"] != want["steps"]:
+        differ.append(f"steps {got['steps']} != {want['steps']}")
+    print(f"phase 9a EtcdCluster session (3 members, Spec defaults) on {card}: "
+          f"{len(got['responses'])} requests in {got['steps']} steps, {wall:.1f}s "
+          f"({wall * 1e3 / got['steps']:.1f} ms/step, the graph's capture included); "
+          f"against {SESSION_PIN}: {'equal' if not differ else 'differs on ' + str(differ)} "
+          f"(hash_kv {got['state']['hash_kv']}, raft term/commit/applied "
+          f"{got['state']['raft_term']}/{got['state']['raft_commit']}/"
+          f"{got['state']['raft_applied']})", flush=True)
+    if differ:
+        failed.append(f"phase 9a: the session differs from {SESSION_PIN} on {differ}")
+
+    # graph == eager from the session's end state: the Cluster's step (a
+    # replay) against build_round run eagerly on copies, same inputs
+    from etcd_tpu_torch.models.engine import build_round
+    from etcd_tpu_torch.types import ENTRY_NORMAL
+
+    g = ec.cl
+    M, E, lead = g.spec.M, g.spec.E, g.leader()
+    st = g.eng.state.map(lambda _, x: x.clone())
+    ib = g.eng.inbox.map(lambda _, x: x.clone())
+    keep = g.eng.keep_mask.clone()
+    eager_round = build_round(g.cfg, g.spec)
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    g.propose(lead, 4242)
+    g.step(tick=True)
+    torch.cuda.synchronize()
+    graph_ms = (time.perf_counter() - t1) * 1e3
+
+    def eager_one():
+        plen = torch.zeros((M, 1), dtype=torch.int32, device=dev)
+        pdata = torch.zeros((M, E, 1), dtype=torch.int32, device=dev)
+        plen[lead], pdata[lead, 0] = 1, 4242
+        z = torch.zeros((M, 1), dtype=torch.int32, device=dev)
+        return eager_round(st, ib, plen, pdata, torch.full_like(pdata, ENTRY_NORMAL), z,
+                           torch.zeros((M, 1), dtype=torch.bool, device=dev),
+                           torch.ones((M, 1), dtype=torch.bool, device=dev), keep)
+    t1 = time.perf_counter()
+    (st, ib), ops = count_ops(eager_one)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t1) * 1e3
+    differ = leaves_equal(g.eng.state, st) + leaves_equal(g.eng.inbox, ib)
+    print(f"phase 9a graph == eager: a ticking round with a proposal from the session's "
+          f"end state, the Cluster's graph replay against build_round run eagerly, "
+          f"every state and inbox leaf equal: {not differ} {differ or ''}; {ops} tensor "
+          f"ops a step (each one kernel), graph {graph_ms:.1f} ms, eager {eager_ms:.1f} ms "
+          f"(ops counted)", flush=True)
+    if differ:
+        failed.append(f"phase 9a: graph != eager on {differ}")
+    del ec, g, st, ib
+    free_card()
+
+    with open(LEASE_PIN) as f:
+        want = json.load(f)["tiny"]
+    rep, n, wall = tiny_tier("lease")
+    differ = pin_differ(rep, {k: v for k, v in want.items() if not k.startswith("runner_")})
+    print(json.dumps(rep), flush=True)
+    print(f"phase 9b the lease tier at the tiny size on {card}: {n} steps in {wall:.1f}s "
+          f"({wall * 1e3 / n:.1f} ms/step, the graph's capture included); against "
+          f"{LEASE_PIN} \"tiny\": {len(rep)} keys, "
+          f"{'equal' if not differ else 'differs on ' + str(differ)} (the runner tier's "
+          f"tiny run is phase 9c's)", flush=True)
+    if differ:
+        failed.append(f"phase 9b: the lease tier's report differs from the pin on {differ}")
+    free_card()
+    for f in failed:
+        print(f"phase 9 FAILED: {f}", flush=True)
+    return failed
+
+
+def phase_default_run(card):
+    """Phase 9c (only with ``--phases 9c``, a call of its own: about 22
+    minutes): the runner tier at the tiny size held to CHAOS_LEASE_PIN.json's
+    "tiny"; then ``etcd_tpu_torch.chaos_run`` at its defaults, CHAOS_LEASE
+    unset, as ``python -m etcd_tpu_torch.chaos_run`` runs it: the network
+    tier at C = 262,144, then the lease and runner tiers at their defaults
+    (seed 0) in their subprocess on the card, their wall time against the
+    reference's 1,800 s limit, and their report held key for key to the
+    reference's (CHAOS_LEASE_PIN.json's "default"). Returns the failures."""
+    import torch
+
+    from etcd_tpu_torch import chaos_run
+
+    with open(LEASE_PIN) as f:
+        pin = json.load(f)
+    failed = []
+    rep, n, wall = tiny_tier("runner")
+    want = {k: v for k, v in pin["tiny"].items() if k.startswith("runner_")}
+    differ = pin_differ(rep, want)
+    print(json.dumps(rep), flush=True)
+    print(f"phase 9c the runner tier at the tiny size on {card}: {n} steps in "
+          f"{wall:.1f}s ({wall * 1e3 / n:.1f} ms/step, the graph's capture included); "
+          f"against {LEASE_PIN} \"tiny\": {len(rep)} keys, "
+          f"{'equal' if not differ else 'differs on ' + str(differ)}", flush=True)
+    if differ:
+        failed.append(f"phase 9c: the runner tier's report differs from the pin on {differ}")
+    free_card()
+    want = pin["default"]
+    k = chaos_run.read_knobs({})
+    real, took = chaos_run.lease_tier, {}
+
+    def timed(seed, dev):
+        t = time.perf_counter()
+        try:
+            return real(seed, dev)
+        finally:
+            took["s"] = time.perf_counter() - t
+    chaos_run.lease_tier = timed
+    t0 = time.perf_counter()
+    try:
+        rep = chaos_run.run(k, "cuda")
+    finally:
+        chaos_run.lease_tier = real
+    torch.cuda.synchronize()
+    print(json.dumps(rep), flush=True)
+    differ = pin_differ({key: rep.get(key) for key in want}, want)
+    print(f"phase 9c chaos_run at its defaults (C={k['C']}, CHAOS_LEASE unset) on {card}: "
+          f"{time.perf_counter() - t0:.1f}s in all; the network tier {rep['elapsed_s']}s "
+          f"(safe {rep['safe']}, recovered {rep['recovered']}, lively {rep['lively']}); "
+          f"the lease and runner tiers {took.get('s', 0):.1f}s of the reference's "
+          f"{chaos_run.LEASE_TIER_TIMEOUT_S}s limit, lease_safe {rep['lease_safe']}"
+          + (f", lease_tier_error {rep['lease_tier_error']!r}" if "lease_tier_error" in rep
+             else "")
+          + f"; against {LEASE_PIN} \"default\": "
+          f"{'equal' if not differ else 'differs on ' + str(differ)}", flush=True)
+    failed += [f"phase 9c: {key}" for key in ("safe", "recovered", "lively", "lease_safe",
+                                              "apply_parity_ok") if not rep[key]]
+    if differ:
+        failed.append(f"phase 9c: the lease tiers differ from the pin on {differ}")
+    for f in failed:
+        print(f"phase 9c FAILED: {f}", flush=True)
+    return failed
+
+
 # functions whose device time the profile reports as named ranges
 PROFILED = (("etcd_tpu_torch.models.raft", "process_message"),
             ("etcd_tpu_torch.utils.prng", "threefry2x32"),
@@ -1374,7 +1669,9 @@ def profile_rounds(label, fn, rounds, card, profiled=PROFILED):
               f"{e.count / rounds:8.1f}x  {e.key[:140]}")
 
 
-PHASES = ("1", "2", "3", "4", "5", "6", "7a", "7b", "8")
+PHASES = ("1", "2", "3", "4", "5", "6", "7a", "7b", "8", "9")
+# phases that run only when named in --phases
+EXTRA_PHASES = ("9c",)
 
 
 def main(argv=None) -> int:
@@ -1384,12 +1681,14 @@ def main(argv=None) -> int:
                     "full-width graph replay of two chaos fault rounds (phase 6), "
                     "and two KV rounds of phase 8 (graph replay and eager)")
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="the phases to run, comma-separated (default: all; phase 5 "
-                    "needs 4); the kernels and result lines print only when all run")
+                    help="the phases to run, comma-separated (default: all but 9c, "
+                    "which runs only when named; phase 5 needs 4); the kernels and "
+                    "result lines print only when all run")
     args = ap.parse_args(argv)
     want = args.phases.split(",")
-    if set(want) - set(PHASES):
-        ap.error(f"unknown phases {sorted(set(want) - set(PHASES))}; known {PHASES}")
+    known = PHASES + EXTRA_PHASES
+    if set(want) - set(known):
+        ap.error(f"unknown phases {sorted(set(want) - set(known))}; known {known}")
 
     import torch
 
@@ -1435,7 +1734,7 @@ def main(argv=None) -> int:
     paths = {}
     for phase, kw in (("6", dict(profiled=PROFILED_CHAOS, full_profile=args.profile)),
                       ("7a", dict(time_kernel=True)),
-                      ("7b", dict(rounds=50, lens=(25, 25), time_kernel=True,
+                      ("7b", dict(rounds=50, lens=(25, 25), time_kernel=True, warm_rounds=2,
                                   profiled=PROFILED_MEMBER))):
         if phase in want:
             paths[phase] = phase_chaos_path(smi, phase, **kw)
@@ -1455,6 +1754,12 @@ def main(argv=None) -> int:
         records["served"], served_failed = phase_served(smi, args.profile)
         failed += served_failed
         done(8)
+    if "9" in want:
+        failed += phase_server(smi)
+        done(9)
+    if "9c" in want:
+        failed += phase_default_run(smi)
+        done("9c")
     if want != list(PHASES):
         print(f"phases {args.phases} in {time.perf_counter() - t0:.1f}s (a subset: no "
               "kernels or result line)")

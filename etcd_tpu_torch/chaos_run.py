@@ -9,9 +9,16 @@ membership faults, with the safety checks every round
 epochs of 25, then one JSON line with the violation counts, the crash and
 membership counters, the liveness figures, the flight recorder's timeline
 and telemetry report, with the black box the forensics section, and the
-verdicts of ``summarize_chaos``. It exits 0 when the run is safe, recovered
-and lively, and the lease and apply gates hold.
+verdicts of ``summarize_chaos``. Then, with CHAOS_LEASE=1 (the default, as
+chaos_run.py:189), the host-layer lease and runner tiers
+(etcd_tpu_torch/harness/chaos_lease.py) run in a subprocess on the same
+device, under chaos_run.py's 1,800 s limit, after the device tier's fleet is
+freed; their report joins the line and folds into ``lease_safe`` as
+chaos_run.py folds it (a failed or timed-out tier gives ``lease_safe`` false
+and ``lease_tier_error``). It exits 0 when the run is safe, recovered and
+lively, and the lease and apply gates hold.
 
+    python -m etcd_tpu_torch.chaos_run
     CHAOS_LEASE=0 CHAOS_C=262144 CHAOS_CRASH=0.01 python -m etcd_tpu_torch.chaos_run
     CHAOS_LEASE=0 CHAOS_C=1048576 CHAOS_MEMBER=0.05 CHAOS_CRASH=0.005 \
         CHAOS_SNAP_BOOST=200 CHAOS_MEMBER_BOOST=4 python -m etcd_tpu_torch.chaos_run
@@ -41,15 +48,14 @@ JSON line:
 
 The membership tier runs on the int32 wire (its words use bits 16-20): an
 explicit CHAOS_WIRE16=1 beside it exits 2. The tiers the port does not run
-yet exit 2 unless left off: CHAOS_PRNG=threefry, ``--preflight``, and
-CHAOS_LEASE=0, the lease tier, which chaos_run.py runs by default
-(chaos_run.py:189): from the command line an unset CHAOS_LEASE is that
-default, so it exits 2 too, and every run names CHAOS_LEASE=0.
+yet exit 2 unless left off: CHAOS_PRNG=threefry and ``--preflight``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -67,8 +73,10 @@ PROG = "chaos_run"
 EPOCH_LEN, HEAL_LEN = 50, 25
 
 # knobs of chaos_run.py whose tier the port does not run: only "off" is taken
-OFF_KNOBS = {"CHAOS_LEASE": "0", "CHAOS_PRNG": "threefry"}
+OFF_KNOBS = {"CHAOS_PRNG": "threefry"}
 M = 5      # chaos_run.py's member count
+# the lease tier's subprocess limit (chaos_run.py:309)
+LEASE_TIER_TIMEOUT_S = 1800
 
 
 def read_knobs(environ=None, on_card: bool = True) -> dict:
@@ -121,6 +129,7 @@ def read_knobs(environ=None, on_card: bool = True) -> dict:
     k["apply_groups"] = env_int(PROG, "APPLY_GROUPS", "256", 1, environ=env)
     k["apply_ops"] = env_int(PROG, "APPLY_OPS", "200", 1, environ=env)
     k["sync"] = env_bool(PROG, "CHAOS_SYNC", "0", environ=env)
+    k["lease_tier"] = env_bool(PROG, "CHAOS_LEASE", "1", environ=env)
     wire16 = env_bool(PROG, "CHAOS_WIRE16", "1", environ=env)
     if member_on and "CHAOS_WIRE16" in env and wire16:
         knob_error(PROG, "CHAOS_MEMBER needs the int32 wire (conf-change words "
@@ -170,11 +179,40 @@ def fault_kwargs(k: dict) -> dict:
                 config_aware=k["config_aware"], **{n: k[n] for n in PLANE_KNOBS})
 
 
+def lease_tier_argv(seed: int, dev) -> list[str]:
+    """The lease tier's command (chaos_run.py:300-309): the port's
+    chaos_lease entry point at the run's seed, on the run's device."""
+    argv = [sys.executable, "-m", "etcd_tpu_torch.harness.chaos_lease",
+            "--seed", str(seed)]
+    return argv if dev.type == "cuda" else argv + ["--device", str(dev)]
+
+
+def lease_tier(seed: int, dev) -> dict:
+    """The lease and runner tiers in a subprocess, folded as chaos_run.py
+    folds them (chaos_run.py:296-335): their report and ``lease_safe``, or
+    on any failure (an exit code, no JSON line, a timeout) ``lease_safe``
+    false and ``lease_tier_error``."""
+    try:
+        out = subprocess.run(lease_tier_argv(seed, dev), capture_output=True,
+                             text=True, timeout=LEASE_TIER_TIMEOUT_S)
+        lines = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
+        if out.returncode != 0 or not lines:
+            raise RuntimeError((out.stderr or out.stdout)[-500:])
+        lrep = json.loads(lines[-1])
+        lease_safe = (not lrep["lease_violations"]
+                      and not lrep.get("lease_gate_failures")
+                      and lrep["runner_exclusion_violations"] == 0
+                      and lrep["runner_final_progress"])
+        return {**lrep, "lease_safe": lease_safe}
+    except Exception as e:  # noqa: BLE001 (the device tier's results stay)
+        return {"lease_safe": False, "lease_tier_error": f"{type(e).__name__}: {e}"[-500:]}
+
+
 def run(k: dict, device=None, end=None) -> dict:
-    """One chaos run at the knobs ``k``, then the KV apply-plane tier when
-    APPLY_KEYS > 0; the JSON line's dict. This is chaos_run.py's run with
-    CHAOS_LEASE=0: the lease tier does not run, and ``lease_safe`` is true,
-    as the reference sets it for that knob."""
+    """One chaos run at the knobs ``k``, then (CHAOS_LEASE=1) the lease
+    tier and (APPLY_KEYS > 0) the KV apply-plane tier; the JSON line's
+    dict. With CHAOS_LEASE=0 the lease tier does not run and ``lease_safe``
+    is true, as the reference sets it for that knob."""
     dev = resolve_device(device)
     spec, cfg = spec_and_config(k)
     t0 = time.perf_counter()
@@ -187,8 +225,16 @@ def run(k: dict, device=None, end=None) -> dict:
     rep["platform"] = "gpu" if dev.type == "cuda" else dev.type
     rep.update(summarize_chaos(rep, rounds=k["rounds"], epoch_len=EPOCH_LEN,
                                heal_len=HEAL_LEN, liveness_frac=k["liveness_frac"]))
-    # CHAOS_LEASE=0: the reference's gate for a skipped lease tier
-    rep["lease_safe"] = True
+    if k["lease_tier"]:
+        # the device tier's fleet and graphs go before the tier's own
+        # process takes the card
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        rep.update(lease_tier(k["seed"], dev))
+    else:
+        # CHAOS_LEASE=0: the reference's gate for a skipped lease tier
+        rep["lease_safe"] = True
     # the KV apply-plane tier (chaos_run.py:333-357): the device revision
     # store against per-schedule host MVCCStore replays on this device; a
     # failure of the tier keeps the chaos results and fails the gate
@@ -212,10 +258,6 @@ def main(argv=None, device=None) -> int:
         knob_error(PROG, f"unknown argument(s): {' '.join(argv)} (etcd_tpu_torch's "
                          "chaos_run takes none, --preflight included; configure via "
                          "CHAOS_* knobs)")
-    if "CHAOS_LEASE" not in os.environ:
-        knob_error(PROG, "CHAOS_LEASE is unset, which chaos_run.py reads as 1 (its "
-                         "lease tier, chaos_run.py:189); etcd_tpu_torch does not run "
-                         "that tier yet: set CHAOS_LEASE=0")
     on_card = device is None or torch.device(device).type == "cuda"
     k = read_knobs(on_card=on_card)
     rep = run(k, device)

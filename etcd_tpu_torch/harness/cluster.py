@@ -10,6 +10,7 @@ inbox leaves [from, K*to(*E), C], the keep-mask [from, to, C]; accessors
 take (m, c). ``telemetry=True`` and ``blackbox=True`` step the telemetry
 plane (models/telemetry.py) and the black-box event ring
 (models/blackbox.py) beside each round; both only read the state.
+On a card each round is one replay of a CUDA graph (RaftEngine).
 """
 from __future__ import annotations
 

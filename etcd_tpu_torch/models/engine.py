@@ -488,13 +488,30 @@ class RaftEngine:
     """Lockstep driver for a fleet of C x M-member Raft groups
     (etcd_tpu/models/engine.py RaftEngine): the fleet, its inbox and the
     keep-mask, stepped by ``build_round``. Every round's inputs stay live
-    (no donation), so a caller may keep ``engine.state`` across steps."""
+    (no donation), so a caller may keep ``engine.state`` across steps.
+
+    On a CUDA device each step is one replay of a CUDA graph of the round
+    (parallel/mesh.py CapturedStep; the first step runs one eager warm-up
+    round and captures) over a static carry of the state, inbox, round
+    inputs and keep-mask, which the host writes before each replay: a step
+    of a small fleet is over a hundred thousand kernels, which the host
+    cannot launch one by one at the card's pace. ``engine.state`` and
+    ``engine.inbox`` are then that carry: the next step overwrites them, so
+    a caller that keeps a state across steps clones it; one that replaces a
+    leaf (``Cluster.set_node``) has it copied in before the next replay. On
+    the CPU the step is the eager round."""
 
     def __init__(self, spec: Spec = Spec(), cfg: RaftConfig = RaftConfig(),
                  C: int = 1, voters=None, learners=None, seed: int = 0,
                  device=None):
         self.spec, self.cfg, self.C = spec, cfg, C
         self.device = resolve_device(device)
+        self.graph = None
+        if self.device.type == "cuda":
+            # parallel/mesh.py imports this module
+            from etcd_tpu_torch.parallel.mesh import CapturedStep
+
+            self.graph = CapturedStep(self._graph_step)
         self.state = init_fleet(spec, C, voters, learners, seed,
                                 election_tick=cfg.election_tick, device=self.device)
         if cfg.packed_state:
@@ -523,12 +540,18 @@ class RaftEngine:
         if isinstance(do_tick, bool):
             do_tick = torch.full((M, C), do_tick, dtype=torch.bool, device=dev)
         i32, b = torch.int32, torch.bool
-        self.state, self.inbox = self._round(
-            self.state, self.inbox, arg(prop_len, (M, C), i32),
-            arg(prop_data, (M, E, C), i32), arg(prop_type, (M, E, C), i32),
-            arg(ri_ctx, (M, C), i32), arg(do_hup, (M, C), b),
-            arg(do_tick, (M, C), b), self.keep_mask)
+        args = (arg(prop_len, (M, C), i32), arg(prop_data, (M, E, C), i32),
+                arg(prop_type, (M, E, C), i32), arg(ri_ctx, (M, C), i32),
+                arg(do_hup, (M, C), b), arg(do_tick, (M, C), b), self.keep_mask)
+        if self.graph is not None:
+            self.state, self.inbox = self.graph((self.state, self.inbox, *args))[:2]
+        else:
+            self.state, self.inbox = self._round(self.state, self.inbox, *args)
         return self.state
+
+    def _graph_step(self, carry):
+        state, inbox, *args = carry
+        return (*self._round(state, inbox, *args), *args)
 
     def pending_messages(self) -> int:
         return int((self.inbox.type != 0).sum())

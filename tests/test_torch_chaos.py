@@ -411,7 +411,7 @@ EXIT_2 = {
     "TELEM_BUCKETS=17": {"TELEM_BUCKETS": "17"},
     "TELEM_BUCKETS=1": {"TELEM_BUCKETS": "1"},
     "TELEM_EVERY=0": {"TELEM_EVERY": "0"},
-    "CHAOS_LEASE=1": {"CHAOS_LEASE": "1"},
+    "CHAOS_LEASE=2": {"CHAOS_LEASE": "2"},
     "CHAOS_BLACKBOX=2": {"CHAOS_BLACKBOX": "2"},
     "CHAOS_BLACKBOX_K=0": {"CHAOS_BLACKBOX_K": "0"},
     "CHAOS_BLACKBOX_WINDOW=1": {"CHAOS_BLACKBOX_WINDOW": "1"},
@@ -433,15 +433,42 @@ def test_driver_exits_2_on_knobs_it_cannot_honour(case):
     assert e.value.code == 2
 
 
-def test_driver_exits_2_with_chaos_lease_unset(monkeypatch, capsys):
+def test_driver_runs_the_lease_tier_with_chaos_lease_unset(monkeypatch, capsys):
     """chaos_run.py reads an unset CHAOS_LEASE as 1 and runs its lease tier
-    (chaos_run.py:189); the port does not run that tier, so from the command
-    line it refuses rather than report a lease_safe it never checked."""
-    monkeypatch.delenv("CHAOS_LEASE", raising=False)
-    with pytest.raises(SystemExit) as e:
-        chaos_run.main([], device="cpu")
-    assert e.value.code == 2
-    assert "CHAOS_LEASE=0" in capsys.readouterr().err
+    in a subprocess (chaos_run.py:189, :296-335); so does the port. The
+    tier's command is replaced by one that prints the reference's tiny-size
+    report (CHAOS_LEASE_PIN.json), then by one that fails: the report and
+    lease_safe, then lease_safe false and lease_tier_error, fold into the
+    JSON line, and the exit code follows."""
+    import json
+    import sys
+
+    pin = json.loads((ROOT / "CHAOS_LEASE_PIN.json").read_text())["tiny"]
+    monkeypatch.setattr(chaos_run, "EPOCH_LEN", 1)
+    monkeypatch.setattr(chaos_run, "HEAL_LEN", 1)
+    for k in ("CHAOS_LEASE", "APPLY_KEYS"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("CHAOS_C", "4")
+    monkeypatch.setenv("CHAOS_ROUNDS", "2")
+    seen = []
+
+    def argv(seed, dev):
+        seen.append((seed, dev.type))
+        return cmd
+    monkeypatch.setattr(chaos_run, "lease_tier_argv", argv)
+    for cmd in ([sys.executable, "-c", f"print({json.dumps(json.dumps(pin))})"],
+                [sys.executable, "-c", "import sys; sys.exit(3)"]):
+        rc = chaos_run.main([], device="cpu")
+        rep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        ok = rep["safe"] and rep["recovered"] and rep["lively"]
+        if "-c" in cmd and "exit" not in cmd[-1]:
+            assert {k: rep[k] for k in pin} == pin and rep["lease_safe"] is True
+            assert "lease_tier_error" not in rep
+            assert rc == (0 if ok else 1)
+        else:
+            assert rep["lease_safe"] is False and rep["lease_tier_error"]
+            assert rc == 1
+    assert seen == [(0, "cpu"), (0, "cpu")]
 
 
 def test_driver_exits_2_on_preflight():

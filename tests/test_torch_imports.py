@@ -54,10 +54,13 @@ def test_imports_and_runs_a_round_with_jax_blocked():
     local step) run at C=2, a 3-member Cluster elects a leader, a
     two-round chaos run with crash and membership faults injects both and
     carries the telemetry plane and the black box, a DeviceBackedStore
-    serves a put, the differential fuzz holds, and a KV round runs."""
+    serves a put, the differential fuzz holds, and a KV round runs; with
+    ``cryptography`` blocked too (the card's machine does not list it), an
+    EtcdCluster on the small Spec elects a leader, serves a txn and a
+    range, and the lease tier's keep mask lands in its Cluster."""
     code = "\n".join([
         "import sys",
-        "for m in ('jax', 'jaxlib', 'flax', 'etcd_tpu'):",
+        "for m in ('jax', 'jaxlib', 'flax', 'etcd_tpu', 'cryptography'):",
         "    sys.modules[m] = None",
         "import dataclasses, importlib, pkgutil, torch",
         "import etcd_tpu_torch.models.telemetry, etcd_tpu_torch.models.blackbox",
@@ -118,6 +121,16 @@ def test_imports_and_runs_a_round_with_jax_blocked():
         "    st, ib, init_kv(KVSpec(keys=4), 2, 'cpu'), True, z2, zp, zp, z2, hup, no,",
         "    torch.ones((5, 5, 2), dtype=torch.bool))",
         "assert events_from_delta(d, 0) == [] and int(kv.current_rev.min()) == 1",
+        "from etcd_tpu_torch.server.kvserver import Compare, EtcdCluster, Op",
+        "from etcd_tpu_torch.harness.chaos_lease import _Rng",
+        "from etcd_tpu_torch.types import Spec",
+        "ec = EtcdCluster(cluster=Cluster(3, spec=Spec(M=3, L=16, E=1, K=2, W=4, R=2, A=2),",
+        "                                 device='cpu'))",
+        "ec.cl.campaign(0); ec.stabilize(); assert ec.ensure_leader() == 0",
+        "assert ec.txn([Compare(b'a', 'version', '=', 0)], [Op('put', b'a', b'1')])['succeeded']",
+        "assert ec.range(b'a', serializable=True)['kvs'][0].value == b'1'",
+        "ec.cl._set_keep(_Rng(0).keep_mask(3, 0.2))",
+        "assert ec.cl.eng.keep_mask.dtype == torch.bool",
         "assert not any(m in sys.modules and sys.modules[m] is not None",
         "               for m in ('jax', 'flax', 'etcd_tpu'))",
         "print('ok')",
@@ -155,6 +168,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         differential_run(KVSpec(keys=4), 2, 4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bench.apply_run(bench.read_apply_knobs({"APPLY_MODE": "device", "APPLY_C": "2"}))
+    from etcd_tpu_torch.harness.chaos_lease import run_lease_chaos
+    from etcd_tpu_torch.server.kvserver import EtcdCluster
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EtcdCluster(n_members=3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_lease_chaos()
 
 
 UNPORTED = {
