@@ -59,7 +59,7 @@ Phases, each printing its lines:
      of a fresh graph of 8 rounds, with that graph's peak memory (8 eager
      rounds and a graph of 8, not 16: a cut);
   6. the chaos path: etcd_tpu_torch.chaos_run's network tier at
-     CHAOS_C = 262,144, CHAOS_ROUNDS = 75 (a fault epoch of 50 rounds, a
+     CHAOS_C = 131,072 (a cut), CHAOS_ROUNDS = 75 (a fault epoch of 50 rounds, a
      heal epoch of 25, and the WaitHealth heal epochs it needs) and its
      other defaults (drop 0.02, delay 0.05, partition 0.1, L = 16, bound 4,
      int16 wire, TELEM=1), with CHAOS_LEASE=0 and the KV apply-plane tier of
@@ -72,8 +72,8 @@ Phases, each printing its lines:
      apply_round, the fault draws, _merge_delayed, check_invariants, the
      kernel, telemetry_update, blackbox_update and msg_activity);
      ``--profile`` adds one of the graph replay of 2 fault rounds;
-  7a. the crash tier at its documented size: CHAOS_C = 262,144,
-     CHAOS_CRASH = 0.01, 75 rounds, with TELEM=1 and CHAOS_BLACKBOX=1 (a safe
+  7a. the crash tier: CHAOS_C = 131,072 (a cut from its documented
+     262,144), CHAOS_CRASH = 0.01, 75 rounds, with TELEM=1 and CHAOS_BLACKBOX=1 (a safe
      run: forensics finds no group), its JSON line, verdicts, timeline, crash
      counters, wall time, launches and peak memory, and the kernel timed on
      the compact_inbox input of an eager fault round;
@@ -115,7 +115,31 @@ Phases, each printing its lines:
      eagerly, every state and inbox leaf equal, with the tensor ops a step
      counted; (b) the lease tier (etcd_tpu_torch/harness/chaos_lease.py)
      at the tiny size (132 steps in the reference), the report held key
-     for key to CHAOS_LEASE_PIN.json's, with its steps and ms per step.
+     for key to CHAOS_LEASE_PIN.json's, with its steps and ms per step;
+  10. the durable embedded server (etcd_tpu_torch/storage, EtcdCluster's
+     data_dir paths, embed.start_etcd with the v3 JSON/HTTP gateway, the
+     local tester), each part held to the reference's answers in
+     DURABLE_SESSION_PIN.json: (a) the durable session of
+     etcd_tpu_torch/harness/durable_session.py at EtcdCluster's defaults
+     with a data dir (puts, a txn, a delete, a compaction, a lease,
+     commit_backends, a follower crashed after sync_for_shutdown and
+     restarted from its backend, a member crashed with an uncommitted batch,
+     which is lost, and restarted, a clean close, boot_from_disk of the
+     directory, a read back, an election and a put): every answer, each
+     member's hash_kv, revision, compact revision, consistent index, leases
+     and raft term, commit and applied at each stage, and the sha256 of each
+     member db; then graph == eager from the booted cluster, with the steps,
+     ms per step and the codec in use; (b) embed.start_etcd (3 members, a
+     data dir, an ephemeral port, the ticker on) driven over RemoteClient on
+     127.0.0.1 (put, range, txn, a lease grant and keep-alive, a watch, an
+     election and a lock, /health, /version, /metrics), closed, started
+     again on the same data dir and read back; (c) the local tester at 4
+     cycles, seed 0, one put a phase and a data dir (a depth cut of its
+     default run; the crash-restart cycle included), its report and steps,
+     healthy.
+Only with ``--phases 10d`` (a call of its own): 10d. the local tester at
+its defaults with a data dir, its report and steps against the pin's
+"localtester_default", healthy, and its wall time.
 Only with ``--phases 9c`` (a call of its own, about 22 minutes): 9c. the
 runner tier at the tiny size (330 steps, moved here from 9b for the
 script's time), held to CHAOS_LEASE_PIN.json's "tiny"; then
@@ -125,7 +149,7 @@ etcd_tpu_torch.chaos_run at its defaults with CHAOS_LEASE unset, as
 subprocess on the card), the tiers' time against the reference's 1,800 s
 limit and their report held key for key to CHAOS_LEASE_PIN.json's.
 Cuts that keep the script inside its 1,200 s limit (PERF.md section 4):
-phases 5, 6 and 7b run at C = 262,144 or 131,072, not 1,048,576, phase 7b
+phases 5, 6, 7a and 7b run at C = 262,144 or 131,072, not 1,048,576, phase 7b
 in epochs of 25 rounds, phases 6 and 7b profile one eager fault round,
 phase 4's probes take the best of 2 passes, phase 5 runs 8 rounds, phase
 8 16 timed rounds, and phase 9b the lease tier alone.
@@ -936,12 +960,14 @@ EAGER_ROUNDS = 1
 # the chaos paths: phase -> (chaos_run knobs, report keys the phase's line
 # prints)
 CHAOS_PATHS = {
-    # cut from C = 1,048,576 to keep the script's time for phase 7b; with the
-    # KV apply-plane tier of chaos_run.py's docstring
-    "6": ({"CHAOS_LEASE": "0", "CHAOS_C": str(FULL_GROUPS // 4), "APPLY_KEYS": "64",
+    # cut from C = 1,048,576 to 262,144 to keep the script's time for phase
+    # 7b, then to 131,072 for phase 10; with the KV apply-plane tier of
+    # chaos_run.py's docstring
+    "6": ({"CHAOS_LEASE": "0", "CHAOS_C": str(FULL_GROUPS // 8), "APPLY_KEYS": "64",
            "APPLY_GROUPS": "256", "APPLY_OPS": "200"}, ()),
-    # chaos_run.py's docstring and tests/test_recovery_crash.py:219
-    "7a": ({"CHAOS_LEASE": "0", "CHAOS_C": str(FULL_GROUPS // 4), "CHAOS_CRASH": "0.01",
+    # chaos_run.py's docstring and tests/test_recovery_crash.py:219, cut from
+    # 262,144 groups to 131,072 for phase 10
+    "7a": ({"CHAOS_LEASE": "0", "CHAOS_C": str(FULL_GROUPS // 8), "CHAOS_CRASH": "0.01",
             "CHAOS_BLACKBOX": "1"},
            ("crashes_injected", "entries_lost_fsync", "restarts_completed",
             "lost_commit", "snap_window_hit_rate")),
@@ -1425,6 +1451,45 @@ def tiny_tier(name):
     return rep, n, time.perf_counter() - t0
 
 
+def graph_vs_eager(g):
+    """From a Cluster ``g``'s current state on the card: one ticking round
+    with a proposal at its leader as the Cluster's step (a graph replay)
+    and as build_round run eagerly on copies of the state, inbox and keep
+    mask, same inputs. Returns (the leaves that differ, the eager round's
+    tensor ops, graph ms, eager ms)."""
+    import torch
+
+    from etcd_tpu_torch.models.engine import build_round
+    from etcd_tpu_torch.types import ENTRY_NORMAL
+
+    M, E, lead = g.spec.M, g.spec.E, g.leader()
+    st = g.eng.state.map(lambda _, x: x.clone())
+    ib = g.eng.inbox.map(lambda _, x: x.clone())
+    keep = g.eng.keep_mask.clone()
+    eager_round = build_round(g.cfg, g.spec)
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    g.propose(lead, 4242)
+    g.step(tick=True)
+    torch.cuda.synchronize()
+    graph_ms = (time.perf_counter() - t1) * 1e3
+
+    def eager_one():
+        plen = torch.zeros((M, 1), dtype=torch.int32, device=dev)
+        pdata = torch.zeros((M, E, 1), dtype=torch.int32, device=dev)
+        plen[lead], pdata[lead, 0] = 1, 4242
+        z = torch.zeros((M, 1), dtype=torch.int32, device=dev)
+        return eager_round(st, ib, plen, pdata, torch.full_like(pdata, ENTRY_NORMAL), z,
+                           torch.zeros((M, 1), dtype=torch.bool, device=dev),
+                           torch.ones((M, 1), dtype=torch.bool, device=dev), keep)
+    t1 = time.perf_counter()
+    (st, ib), ops = count_ops(eager_one)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t1) * 1e3
+    return leaves_equal(g.eng.state, st) + leaves_equal(g.eng.inbox, ib), ops, graph_ms, eager_ms
+
+
 def phase_server(card):
     """Phase 9, the server layer (etcd_tpu_torch/server/kvserver.py
     EtcdCluster on the torch Cluster, each step one CUDA-graph replay):
@@ -1468,38 +1533,8 @@ def phase_server(card):
     if differ:
         failed.append(f"phase 9a: the session differs from {SESSION_PIN} on {differ}")
 
-    # graph == eager from the session's end state: the Cluster's step (a
-    # replay) against build_round run eagerly on copies, same inputs
-    from etcd_tpu_torch.models.engine import build_round
-    from etcd_tpu_torch.types import ENTRY_NORMAL
-
-    g = ec.cl
-    M, E, lead = g.spec.M, g.spec.E, g.leader()
-    st = g.eng.state.map(lambda _, x: x.clone())
-    ib = g.eng.inbox.map(lambda _, x: x.clone())
-    keep = g.eng.keep_mask.clone()
-    eager_round = build_round(g.cfg, g.spec)
-    dev = torch.device("cuda")
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    g.propose(lead, 4242)
-    g.step(tick=True)
-    torch.cuda.synchronize()
-    graph_ms = (time.perf_counter() - t1) * 1e3
-
-    def eager_one():
-        plen = torch.zeros((M, 1), dtype=torch.int32, device=dev)
-        pdata = torch.zeros((M, E, 1), dtype=torch.int32, device=dev)
-        plen[lead], pdata[lead, 0] = 1, 4242
-        z = torch.zeros((M, 1), dtype=torch.int32, device=dev)
-        return eager_round(st, ib, plen, pdata, torch.full_like(pdata, ENTRY_NORMAL), z,
-                           torch.zeros((M, 1), dtype=torch.bool, device=dev),
-                           torch.ones((M, 1), dtype=torch.bool, device=dev), keep)
-    t1 = time.perf_counter()
-    (st, ib), ops = count_ops(eager_one)
-    torch.cuda.synchronize()
-    eager_ms = (time.perf_counter() - t1) * 1e3
-    differ = leaves_equal(g.eng.state, st) + leaves_equal(g.eng.inbox, ib)
+    # graph == eager from the session's end state
+    differ, ops, graph_ms, eager_ms = graph_vs_eager(ec.cl)
     print(f"phase 9a graph == eager: a ticking round with a proposal from the session's "
           f"end state, the Cluster's graph replay against build_round run eagerly, "
           f"every state and inbox leaf equal: {not differ} {differ or ''}; {ops} tensor "
@@ -1507,7 +1542,7 @@ def phase_server(card):
           f"(ops counted)", flush=True)
     if differ:
         failed.append(f"phase 9a: graph != eager on {differ}")
-    del ec, g, st, ib
+    del ec
     free_card()
 
     with open(LEASE_PIN) as f:
@@ -1592,6 +1627,174 @@ def phase_default_run(card):
     return failed
 
 
+DURABLE_PIN = "DURABLE_SESSION_PIN.json"
+
+
+def phase_durable(card):
+    """Phase 10, the durable embedded server on the card, each part held to
+    the reference's answers in DURABLE_SESSION_PIN.json: (a) the durable
+    session of harness/durable_session.py on EtcdCluster at its defaults (3
+    members, the Spec defaults) with a data dir (puts, a txn, a delete, a
+    compaction and a lease; commit_backends; a follower crashed after
+    sync_for_shutdown, a write while it is down, its restart from its
+    backend; a member crashed with an uncommitted batch, which is lost, and
+    restarted; a clean close; boot_from_disk of the directory, a read back,
+    an election and a put; each election by member 0's campaign): the
+    answers, each member's state at each stage and the sha256 of each member
+    db; then graph == eager from the booted cluster; (b) the gateway session
+    on embed.start_etcd (3 members, the data dir, an ephemeral port, the
+    ticker on) over RemoteClient, the v2 REST family and v2 auth over the
+    wire, a close, a restart on the same data dir and every key read back;
+    (c) the local
+    tester at the pin's depth cut (4 cycles, seed 0, one put a phase, a
+    data dir): the report and the steps, and healthy. Prints the steps, ms
+    per step and the codec in use. Returns the failures."""
+    import tempfile
+
+    import torch
+
+    from etcd_tpu_torch import client, localtester
+    from etcd_tpu_torch.embed import Config, start_etcd
+    from etcd_tpu_torch.harness import durable_session as ds
+    from etcd_tpu_torch.harness.cluster import Cluster
+    from etcd_tpu_torch.server.kvserver import EtcdCluster
+    from etcd_tpu_torch.storage import walcodec
+
+    with open(DURABLE_PIN) as f:
+        pin = json.load(f)
+    failed = []
+    codec = "native (native/walcodec.cpp, built with g++)" if walcodec.is_native() \
+        else "Python (the native build failed)"
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ec = EtcdCluster(n_members=3, data_dir=d)
+        out = ds.run_durable_session(ec, ds.port_api(), d, lambda: Cluster(n_members=3))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got, want = json.loads(json.dumps(ds.session_view(out))), pin["session"]
+        differ = [r[0] for r, w in zip(got["responses"], want["responses"]) if r != w]
+        if len(got["responses"]) != len(want["responses"]):
+            differ.append("the number of responses")
+        differ += [f"state {k}" for k in pin_differ(got["state"], want["state"])]
+        differ += [f"file {k}" for k in pin_differ(got["files"], want["files"])]
+        if got["steps"] != want["steps"]:
+            differ.append(f"steps {got['steps']} != {want['steps']}")
+        booted = got["state"]["booted_written"]
+        print(f"phase 10a durable session (3 members, Spec defaults, a data dir) on {card}: "
+              f"{len(got['responses'])} requests in {got['steps']} steps, {wall:.1f}s "
+              f"({wall * 1e3 / got['steps']:.1f} ms/step, two graph captures included); "
+              f"codec {codec}; member db sha256 "
+              f"{[v['sha256'][:12] for v in got['files'].values()]}; against {DURABLE_PIN}: "
+              f"{'equal' if not differ else 'differs on ' + str(differ)} (after the boot: "
+              f"hash_kv {booted['hash_kv']}, applied {booted['applied_index']}, raft "
+              f"term {booted['raft_term']})", flush=True)
+        if differ:
+            failed.append(f"phase 10a: the durable session differs from {DURABLE_PIN} "
+                          f"on {differ}")
+        differ, ops, graph_ms, eager_ms = graph_vs_eager(out["booted"].cl)
+        print(f"phase 10a graph == eager from the booted cluster (its state written by "
+              f"boot_from_disk through Cluster.set_node): every state and inbox leaf "
+              f"equal: {not differ} {differ or ''}; {ops} tensor ops a step, graph "
+              f"{graph_ms:.1f} ms, eager {eager_ms:.1f} ms (ops counted)", flush=True)
+        if differ:
+            failed.append(f"phase 10a: graph != eager on {differ}")
+        del ec, out
+    free_card()
+
+    with tempfile.TemporaryDirectory() as d:
+        restore = counted_steps()
+        t0 = time.perf_counter()
+        try:
+            got = json.loads(json.dumps(ds.run_gateway_session(
+                lambda: start_etcd(Config(cluster_size=3, data_dir=d, auto_tick=True)),
+                client)))
+        finally:
+            n = restore()
+        wall = time.perf_counter() - t0
+    want = pin["gateway"]
+    differ = [r[0] for r, w in zip(got["responses"], want["responses"]) if r != w]
+    if len(got["responses"]) != len(want["responses"]):
+        differ.append("the number of responses")
+    r = dict(got["responses"])
+    print(f"phase 10b the v3 gateway on embed.start_etcd (3 members, a data dir, the "
+          f"ticker on) over RemoteClient on {card}: {len(got['responses'])} requests, "
+          f"a close and a restart from disk in {n} steps (the ticker's included), "
+          f"{wall:.1f}s; read back after the restart {r.get('restarted read back')} and "
+          f"v2 {r.get('restarted v2 get /v2a')}; "
+          f"against {DURABLE_PIN}: {'equal' if not differ else 'differs on ' + str(differ)}",
+          flush=True)
+    if differ:
+        failed.append(f"phase 10b: the gateway session differs from {DURABLE_PIN} "
+                      f"on {differ}")
+    free_card()
+
+    want = pin["localtester"]
+    with tempfile.TemporaryDirectory() as d:
+        restore = counted_steps()
+        t0 = time.perf_counter()
+        try:
+            rep = localtester.run_local_tester(data_dir=d, **pin["tester_cut"])
+            torch.cuda.synchronize()
+        finally:
+            n = restore()
+        wall = time.perf_counter() - t0
+    differ = pin_differ(rep, want["report"])
+    if n != want["steps"]:
+        differ.append(f"steps {n} != {want['steps']}")
+    print(json.dumps(rep), flush=True)
+    print(f"phase 10c the local tester (cycles 4, seed 0, one put a phase, a data dir) "
+          f"on {card}: {n} steps in {wall:.1f}s ({wall * 1e3 / n:.1f} ms/step), healthy "
+          f"{rep['healthy']}; against {DURABLE_PIN} \"localtester\": "
+          f"{'equal' if not differ else 'differs on ' + str(differ)}", flush=True)
+    if differ or not rep["healthy"]:
+        failed.append(f"phase 10c: the local tester differs from the pin on {differ} "
+                      f"or is not healthy")
+    free_card()
+    for f in failed:
+        print(f"phase 10 FAILED: {f}", flush=True)
+    return failed
+
+
+def phase_tester_default(card):
+    """Phase 10d (only with ``--phases 10d``, a call of its own): the local
+    tester at its defaults with a data dir (``python -m
+    etcd_tpu_torch.localtester --data-dir D``: 4 cycles, 3 members, 8 puts a
+    phase, seed 0), its report and steps held to DURABLE_SESSION_PIN.json's
+    "localtester_default", healthy, and its wall time. Returns the
+    failures."""
+    import tempfile
+
+    import torch
+
+    from etcd_tpu_torch import localtester
+
+    with open(DURABLE_PIN) as f:
+        want = json.load(f)["localtester_default"]
+    with tempfile.TemporaryDirectory() as d:
+        restore = counted_steps()
+        t0 = time.perf_counter()
+        try:
+            rep = localtester.run_local_tester(data_dir=d)
+            torch.cuda.synchronize()
+        finally:
+            n = restore()
+        wall = time.perf_counter() - t0
+    differ = pin_differ(rep, want["report"])
+    if n != want["steps"]:
+        differ.append(f"steps {n} != {want['steps']}")
+    print(json.dumps(rep), flush=True)
+    print(f"phase 10d the local tester at its defaults with a data dir on {card}: {n} "
+          f"steps in {wall:.1f}s ({wall * 1e3 / n:.1f} ms/step), healthy {rep['healthy']}; "
+          f"against {DURABLE_PIN} \"localtester_default\": "
+          f"{'equal' if not differ else 'differs on ' + str(differ)}", flush=True)
+    failed = []
+    if differ or not rep["healthy"]:
+        failed.append(f"phase 10d: the local tester differs from the pin on {differ} "
+                      f"or is not healthy")
+        print(f"phase 10d FAILED: {failed[0]}", flush=True)
+    return failed
+
+
 # functions whose device time the profile reports as named ranges
 PROFILED = (("etcd_tpu_torch.models.raft", "process_message"),
             ("etcd_tpu_torch.utils.prng", "threefry2x32"),
@@ -1669,9 +1872,9 @@ def profile_rounds(label, fn, rounds, card, profiled=PROFILED):
               f"{e.count / rounds:8.1f}x  {e.key[:140]}")
 
 
-PHASES = ("1", "2", "3", "4", "5", "6", "7a", "7b", "8", "9")
+PHASES = ("1", "2", "3", "4", "5", "6", "7a", "7b", "8", "9", "10")
 # phases that run only when named in --phases
-EXTRA_PHASES = ("9c",)
+EXTRA_PHASES = ("9c", "10d")
 
 
 def main(argv=None) -> int:
@@ -1681,8 +1884,8 @@ def main(argv=None) -> int:
                     "full-width graph replay of two chaos fault rounds (phase 6), "
                     "and two KV rounds of phase 8 (graph replay and eager)")
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="the phases to run, comma-separated (default: all but 9c, "
-                    "which runs only when named; phase 5 needs 4); the kernels and "
+                    help="the phases to run, comma-separated (default: all but 9c and "
+                    "10d, which run only when named; phase 5 needs 4); the kernels and "
                     "result lines print only when all run")
     args = ap.parse_args(argv)
     want = args.phases.split(",")
@@ -1760,6 +1963,12 @@ def main(argv=None) -> int:
     if "9c" in want:
         failed += phase_default_run(smi)
         done("9c")
+    if "10" in want:
+        failed += phase_durable(smi)
+        done(10)
+    if "10d" in want:
+        failed += phase_tester_default(smi)
+        done("10d")
     if want != list(PHASES):
         print(f"phases {args.phases} in {time.perf_counter() - t0:.1f}s (a subset: no "
               "kernels or result line)")

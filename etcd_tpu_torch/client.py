@@ -8,8 +8,8 @@ because transport faults surface as engine-level mask faults, not RPC
 errors.
 
 The port's copy of etcd_tpu/client.py, which it imports nothing of; the
-wire transport (``RemoteClient``, ``RemoteWatch``) waits for the port's
-transport.
+wire transport (``RemoteClient``, ``RemoteWatch``) speaks the port's v3
+JSON/HTTP gateway (server/v3rpc.py).
 """
 from __future__ import annotations
 
@@ -207,3 +207,163 @@ class _WatchHandle:
 
     def cancel(self) -> bool:
         return self.client.ec.cancel_watch(self.member, self.watch_id)
+
+
+# --------------------------------------------------------- wire transport
+
+class RemoteError(Exception):
+    """A gateway error response (the clientv3 rpctypes error analog)."""
+
+
+class RemoteClient:
+    """clientv3 over the wire: the JSON/HTTP gateway transport analog of
+    the reference's gRPC client path (client/v3/client.go dial +
+    credentials). The in-process :class:`Client` drives EtcdCluster
+    directly; this one reaches a server in another process — over HTTPS
+    with CA verification, mutual TLS, or cert-CN identity — using the
+    same endpoints etcdctl speaks.
+
+    `tls` is a :class:`etcd_tpu_torch.transport.TLSInfo` (or a prebuilt
+    ``ssl.SSLContext``): trusted_ca_file verifies the server cert,
+    client_cert/key enable mutual TLS (and cert-CN auth when the server
+    requires client certs)."""
+
+    def __init__(self, endpoint: str, token: str | None = None,
+                 tls=None, timeout: float | None = 10.0):
+        from etcd_tpu_torch.transport import resolve_client_context
+
+        self.endpoint = endpoint.rstrip("/")
+        self.token = token
+        self.timeout = timeout  # None = block (CLI snapshot saves etc.)
+        self._ctx = resolve_client_context(tls)
+
+    # ---- transport
+    def call(self, path: str, body: dict) -> dict:
+        import json
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(
+            self.endpoint + path, data=json.dumps(body).encode(),
+            method="POST",
+            headers={
+                "Content-Type": "application/json",
+                **({"Authorization": self.token} if self.token else {}),
+            })
+        try:
+            with urllib.request.urlopen(
+                    req, timeout=self.timeout, context=self._ctx) as r:
+                return json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            out = e.read()
+            try:
+                parsed = json.loads(out or b"{}")
+                msg = parsed.get("error", "") if isinstance(
+                    parsed, dict) else str(parsed)
+            except json.JSONDecodeError:
+                msg = out.decode(errors="replace")
+            raise RemoteError(msg or f"HTTP {e.code}") from None
+
+    def get_raw(self, path: str) -> bytes:
+        """GET an etcdhttp endpoint (/health, /metrics, snapshots)
+        through the same TLS context as the JSON calls."""
+        import urllib.request
+
+        with urllib.request.urlopen(self.endpoint + path,
+                                    timeout=self.timeout,
+                                    context=self._ctx) as r:
+            return r.read()
+
+    @staticmethod
+    def _b64(v: bytes) -> str:
+        import base64
+
+        return base64.b64encode(v).decode()
+
+    @staticmethod
+    def _unb64(v: str | None) -> bytes:
+        import base64
+
+        return base64.b64decode(v) if v else b""
+
+    # ---- auth
+    def login(self, name: str, password: str) -> "RemoteClient":
+        out = self.call("/v3/auth/authenticate",
+                        {"name": name, "password": password})
+        self.token = out["token"]
+        return self
+
+    # ---- kv
+    def put(self, key: bytes, value: bytes, lease: int = 0) -> dict:
+        body: dict = {"key": self._b64(key), "value": self._b64(value)}
+        if lease:
+            body["lease"] = str(lease)
+        return self.call("/v3/kv/put", body)
+
+    def get(self, key: bytes) -> bytes | None:
+        res = self.call("/v3/kv/range", {"key": self._b64(key)})
+        kvs = res.get("kvs", [])
+        return self._unb64(kvs[0].get("value")) if kvs else None
+
+    def get_prefix(self, prefix: bytes) -> list[tuple[bytes, bytes]]:
+        res = self.call("/v3/kv/range", {
+            "key": self._b64(prefix),
+            "range_end": self._b64(prefix_range_end(prefix)),
+        })
+        return [(self._unb64(kv.get("key")), self._unb64(kv.get("value")))
+                for kv in res.get("kvs", [])]
+
+    def delete(self, key: bytes, range_end: bytes | None = None) -> int:
+        body = {"key": self._b64(key)}
+        if range_end:
+            body["range_end"] = self._b64(range_end)
+        return int(self.call("/v3/kv/deleterange", body).get("deleted", 0))
+
+    # ---- lease
+    def lease_grant(self, lease_id: int, ttl: int) -> dict:
+        return self.call("/v3/lease/grant",
+                         {"ID": str(lease_id), "TTL": str(ttl)})
+
+    def lease_keepalive(self, lease_id: int) -> dict:
+        return self.call("/v3/lease/keepalive", {"ID": str(lease_id)})
+
+    def lease_revoke(self, lease_id: int) -> dict:
+        return self.call("/v3/lease/revoke", {"ID": str(lease_id)})
+
+    # ---- watch (create + poll, the gateway's long-poll stream stand-in)
+    def watch(self, key: bytes, prefix: bool = False,
+              start_rev: int = 0) -> "RemoteWatch":
+        c: dict = {"key": self._b64(key)}
+        if prefix:
+            c["range_end"] = self._b64(prefix_range_end(key))
+        if start_rev:
+            c["start_revision"] = str(start_rev)
+        out = self.call("/v3/watch", {"create_request": c})
+        return RemoteWatch(self, int(out["watch_id"]))
+
+    # ---- maintenance
+    def status(self) -> dict:
+        return self.call("/v3/maintenance/status", {})
+
+    def member_list(self) -> dict:
+        return self.call("/v3/cluster/member/list", {})
+
+
+@dataclasses.dataclass
+class RemoteWatch:
+    client: RemoteClient
+    watch_id: int
+
+    def events(self) -> list[tuple[str, bytes, bytes]]:
+        """Drain pending events as (type, key, value) triples."""
+        out = self.client.call("/v3/watch", {
+            "poll_request": {"watch_id": str(self.watch_id)}})
+        return [(e["type"],
+                 RemoteClient._unb64(e["kv"].get("key")),
+                 RemoteClient._unb64(e["kv"].get("value")))
+                for e in out.get("events", [])]
+
+    def cancel(self) -> bool:
+        out = self.client.call("/v3/watch", {
+            "cancel_request": {"watch_id": str(self.watch_id)}})
+        return bool(out.get("canceled"))

@@ -92,7 +92,7 @@ from etcd_tpu_torch.types import (
 )
 from etcd_tpu_torch.utils import prng
 from etcd_tpu_torch.utils.config import CrashConfig, MemberChaosConfig, RaftConfig
-from etcd_tpu_torch.utils.device import resolve_device
+from etcd_tpu_torch.utils.device import in_eager_mode, resolve_device
 
 VIOLATION_KEYS = (
     "multi_leader", "hash_mismatch", "commit_regress",
@@ -806,6 +806,7 @@ def chaos_operands(spec: Spec, drop_p: float, delay_p: float, partition_p: float
             (*heal, z, *rest, z, palette, *boosts))
 
 
+@in_eager_mode
 def run_chaos(spec: Spec, cfg: RaftConfig, C: int, rounds: int = 200,
               epoch_len: int = 50, heal_len: int = 25, seed: int = 0,
               drop_p: float = 0.02, delay_p: float = 0.05,

@@ -34,6 +34,7 @@ from etcd_tpu_torch.types import (
     Spec,
 )
 from etcd_tpu_torch.utils.config import RaftConfig
+from etcd_tpu_torch.utils.device import eager_mode
 
 
 class Cluster:
@@ -143,6 +144,10 @@ class Cluster:
 
     # -- stepping ---------------------------------------------------------------
     def step(self, tick: bool = False):
+        with eager_mode(self.eng.device):
+            self._step(tick)
+
+    def _step(self, tick: bool):
         # padding lanes never tick, so they stay quiet
         do_tick = np.zeros((self.spec.M, self._Cp), bool)
         if tick:

@@ -19,10 +19,12 @@ wait-map (pkg/wait/wait.go:33-41 analog) to the blocked caller.
 The cluster's state leaves live on its device (``device=None``: CUDA). The
 server reads them only through :meth:`EtcdCluster._read`, which takes the
 leaves it names for this cluster's lane off the device in one transfer; on
-CUDA the ``Cluster``'s round replays as one CUDA graph a step. The
-``data_dir`` paths (the storage backend, ``_persist``, restart from disk and
-``boot_from_disk``) wait for the port's storage slice: a ``data_dir`` is
-refused with a ``ServerError``. A member restarts from memory only.
+CUDA the ``Cluster``'s round replays as one CUDA graph a step. With a
+``data_dir`` each member keeps its applied state in a backend file
+(storage/backend.py, storage/schema.py): ``_pump`` stages every apply batch
+behind it, a crashed member restarts from that file, and ``boot_from_disk``
+rebuilds a whole cluster from a directory, writing its restored raft
+position into the device state through ``Cluster.set_node``.
 """
 from __future__ import annotations
 
@@ -190,11 +192,6 @@ class EtcdCluster:
         # Chrome trace alongside the host request spans below. Ignored
         # when an explicit `cluster` is injected — its owner decides, and
         # its device is the server's.
-        if data_dir:
-            raise ServerError(
-                "data_dir: the storage backend (storage/backend.py, "
-                "storage/schema.py) is not ported to etcd_tpu_torch yet; "
-                "run memory-only members (data_dir=None)")
         self.cl = cluster or Cluster(n_members=n_members,
                                      telemetry=telemetry,
                                      blackbox=blackbox,
@@ -232,7 +229,7 @@ class EtcdCluster:
         self.req_spans: list[dict] = []
         # per-member binary-version overrides for mixed-version fleets
         # (the reference's rolling binary swap); applies at construction
-        # AND at restart (see restart_member_from_disk)
+        # AND at restart-from-disk (see _member_from_backend)
         self.server_versions: dict[int, str] = {}
         # wall clock for v2 TTL stamping (injectable for deterministic
         # TTL tests; replicated state never reads it directly — only
@@ -253,6 +250,11 @@ class EtcdCluster:
         self.apply_plane = apply_plane
         self.device_plane = None
         if apply_plane == "device":
+            if data_dir:
+                raise ServerError(
+                    "apply_plane='device' has no backend persistence path "
+                    "yet; the durable floor is the device snapshot tier"
+                )
             from etcd_tpu_torch.device_mvcc import DevicePlane, KVSpec
 
             self.device_plane = DevicePlane(KVSpec(keys=kv_keys), C=self.M,
@@ -262,7 +264,26 @@ class EtcdCluster:
                         self._new_auth())
             for m in range(self.M)
         ]
+        if data_dir:
+            import os
+
+            from etcd_tpu_torch.storage.backend import Backend
+
+            os.makedirs(data_dir, exist_ok=True)
+            for m, ms in enumerate(self.members):
+                # fresh incarnation: any file from a previous cluster in
+                # this directory must not leak phantom revisions
+                ms.backend = Backend(self._backend_path(m), fresh=True)
         self._root_token: str | None = None
+
+    @staticmethod
+    def member_db_path(data_dir: str, m: int) -> str:
+        import os
+
+        return os.path.join(data_dir, f"member{m}.db")
+
+    def _backend_path(self, m: int) -> str:
+        return self.member_db_path(self.data_dir, m)
 
     def _read(self, *names: str, m: int | None = None) -> list[np.ndarray]:
         """This cluster's view of state leaves (``[M, ...]``, or member
@@ -369,10 +390,11 @@ class EtcdCluster:
         """Drain newly-applied entries device->host for every member
         (the applyAll path, server.go:903-1104)."""
         # one device-to-host transfer a step: the apply cursors, the ring,
-        # and the config masks _gc_requests reads (the host's applies do
-        # not move the device state, so one read serves the whole pump)
-        applied, snap, terms, datas, types, *conf = self._read(
-            "applied", "snap_index", "log_term", "log_data", "log_type",
+        # the terms _persist records and the config masks _gc_requests
+        # reads (the host's applies do not move the device state, so one
+        # read serves the whole pump)
+        applied, snap, terms, datas, types, terms_now, *conf = self._read(
+            "applied", "snap_index", "log_term", "log_data", "log_type", "term",
             "voters", "voters_out", "learners")
         L = self.cl.spec.L
 
@@ -416,6 +438,9 @@ class EtcdCluster:
             hi, lo = int(applied[m]), ms.applied_index
             if hi > lo:
                 apply_range(m, ms, lo, hi)
+        for m, ms in enumerate(self.members):
+            if ms.backend is not None and not ms.crashed:
+                self._persist(ms, int(terms_now[m]))
         self._gc_requests(*conf)
 
     def commit_backends(self) -> None:
@@ -426,6 +451,55 @@ class EtcdCluster:
             if ms.backend is not None and not ms.crashed:
                 ms.backend.commit()
                 ms.durable_index = ms.applied_index
+
+    def _persist(self, ms: MemberState, term: int) -> None:
+        """Write the apply batch behind the member: new MVCC revisions +
+        one atomic applied-meta record (consistent index, cursors, lease/
+        auth/alarm snapshots) — the batchTx + cindex discipline of
+        backend/batch_tx.go + cindex/cindex.go:30-38. Flushing happens on
+        the backend's batch limit; a crash between commits rolls the
+        member back to the last committed point and WAL/ring replay
+        resumes from its consistent index."""
+        from etcd_tpu_torch.storage import schema
+        from etcd_tpu_torch.utils import failpoints
+
+        kv = ms.store.kv
+        sig = (ms.applied_index, kv.current_rev, kv.compact_rev)
+        if sig == getattr(ms, "_persist_sig", None):
+            return  # nothing applied since the last persist: no-op
+        # gofail raftBeforeSave marker (etcdserver/raft.go:221): the batch
+        # is about to be staged behind this member
+        failpoints.fire("raftBeforeSave")
+        if kv.compact_rev > ms.persisted_compact:
+            schema.persist_compaction(ms.backend, kv)
+            ms.persisted_compact = kv.compact_rev
+        ms.persisted_rev = schema.persist_mvcc_delta(
+            ms.backend, kv, ms.persisted_rev
+        )
+        schema.save_applied_meta(
+            ms.backend,
+            index=ms.applied_index,
+            term=term,
+            store=kv,
+            lease_snap=ms.lessor.to_snapshot(),
+            auth_snap=ms.auth.to_snapshot(),
+            alarms=ms.alarms,
+            cluster_version=ms.cluster_version,
+            downgrade=ms.downgrade.to_dict(),
+            v2=ms.v2store.save(),
+        )
+        # sig records success only after the batch is fully staged: a crash
+        # at any marker above re-stages the whole batch on the next pump
+        ms._persist_sig = sig
+        # gofail raftAfterSave (etcdserver/raft.go:228): staged but not
+        # necessarily fsync'd — a crash here loses the uncommitted batch
+        failpoints.fire("raftAfterSave")
+        # half-full batch -> flush now so the durable floor advances and
+        # the payload table can GC (the 100ms batchInterval analog)
+        if ms.backend._pending_ops >= ms.backend.batch_limit // 2:
+            ms.backend.commit()
+        if not ms.backend._pending_ops:
+            ms.durable_index = ms.applied_index
 
     def crash_member(self, m: int) -> None:
         """Simulate a member process crash: all host applied state is
@@ -443,33 +517,194 @@ class EtcdCluster:
         self.members[m] = husk
 
     def restart_member_from_disk(self, m: int) -> None:
-        """Restart a crashed member. Memory-only members (the only kind
-        until the storage slice is ported) come back empty and catch up
-        from the ring or a peer snapshot through _pump (the reference's
-        rebuild from the backend, bootstrap.go:145, waits for that
-        slice)."""
-        # memory-only member: nothing on disk — come back empty and
-        # catch up from the ring / a peer snapshot through _pump. The
-        # restarting binary keeps its override version, and the boot
-        # check runs AFTER catch-up against whatever cluster state the
-        # peer snapshot restored (the bootstrapExistingClusterNoWAL
-        # case of mustDetectDowngrade).
-        husk = MemberState(
-            self._fresh_store(m),
-            Lessor(self.members[m].lessor.min_ttl), self._new_auth(),
-        )
-        if m in self.server_versions:
-            husk.server_version = self.server_versions[m]
-        self.members[m] = husk
-        self._pump()
-        ms = self.members[m]
-        try:
-            detect_downgrade(
-                ms.server_version, ms.cluster_version, ms.downgrade
+        """Rebuild a member's applied state machine from its backend (the
+        bootstrapBackend path, server/etcdserver/bootstrap.go:145): MVCC
+        from the key bucket trimmed to the atomic applied-meta record,
+        lease/auth/alarms from that record, applied cursor = consistent
+        index — entries <= cindex replay as no-ops (dedup across restart,
+        server.go:1879-1885)."""
+        from etcd_tpu_torch.storage.backend import Backend
+
+        if self.data_dir is None:
+            # memory-only member: nothing on disk — come back empty and
+            # catch up from the ring / a peer snapshot through _pump. The
+            # restarting binary keeps its override version, and the boot
+            # check runs AFTER catch-up against whatever cluster state the
+            # peer snapshot restored (the bootstrapExistingClusterNoWAL
+            # case of mustDetectDowngrade).
+            husk = MemberState(
+                self._fresh_store(m),
+                Lessor(self.members[m].lessor.min_ttl), self._new_auth(),
             )
-        except Exception:
-            ms.crashed = True  # refuse to serve on an illegal mix
-            raise
+            if m in self.server_versions:
+                husk.server_version = self.server_versions[m]
+            self.members[m] = husk
+            self._pump()
+            ms = self.members[m]
+            try:
+                detect_downgrade(
+                    ms.server_version, ms.cluster_version, ms.downgrade
+                )
+            except Exception:
+                ms.crashed = True  # refuse to serve on an illegal mix
+                raise
+            return
+
+        be = Backend(self._backend_path(m))
+        ms, _ = self._member_from_backend(
+            be, self.members[m].lessor.min_ttl, m=m
+        )
+        self.members[m] = ms
+        # catch up from the device ring (or a peer snapshot if compacted)
+        self._pump()
+
+    def _member_from_backend(
+        self, be, lease_min_ttl: int = 1, m: int | None = None
+    ) -> tuple[MemberState, dict]:
+        """Rebuild one member's applied state bundle from an open backend
+        (the shared tail of bootstrapBackend, bootstrap.go:145)."""
+        from etcd_tpu_torch.storage import schema
+
+        meta = schema.load_applied_meta(be) or {
+            "consistent_index": 0, "term": 0, "current_rev": 1,
+            "compact_rev": 0, "lease": None, "auth": None, "alarms": [],
+        }
+        store = schema.load_mvcc(
+            be, max_rev=meta["current_rev"], compact_rev=meta["compact_rev"]
+        )
+        ws = WatchableStore()
+        ws.restore(store)
+        ms = MemberState(ws, Lessor(lease_min_ttl), self._new_auth())
+        if meta["lease"] is not None:
+            ms.lessor.restore(meta["lease"])
+        if meta["auth"] is not None:
+            ms.auth.restore(meta["auth"])
+        ms.alarms = set(meta["alarms"])
+        ms.applied_index = meta["consistent_index"]
+        ms.backend = be
+        ms.persisted_rev = store.current_rev
+        ms.persisted_compact = store.compact_rev
+        ms.durable_index = meta["consistent_index"]
+        # recover the replicated version records (cluster.go:263-269),
+        # then refuse to serve on an illegal version mix — the
+        # mustDetectDowngrade boot check (downgrade.go:41-75). The
+        # restarting "binary"'s version comes from the per-member
+        # override map (a rolling binary swap in the reference world).
+        if m is not None and m in self.server_versions:
+            ms.server_version = self.server_versions[m]
+        ms.cluster_version = meta.get("cluster_version")
+        ms.downgrade = DowngradeInfo.from_dict(meta.get("downgrade"))
+        if meta.get("v2"):
+            ms.v2store.recovery(meta["v2"])
+        detect_downgrade(ms.server_version, ms.cluster_version, ms.downgrade)
+        return ms, meta
+
+    @classmethod
+    def boot_from_disk(
+        cls,
+        data_dir: str,
+        n_members: int = 3,
+        missing_ok: bool = False,
+        uniform: bool = True,
+        members: list[int] | None = None,
+        **kw,
+    ) -> "EtcdCluster":
+        """Boot a cluster from an EXISTING data dir (the bootstrapWithWAL /
+        etcdutl-restore boot path, bootstrap.go:253 +
+        etcdutl/snapshot_command.go:122): each member's applied state
+        machine loads from its backend, and the device raft state starts
+        from a synthetic snapshot at the restored consistent index — the
+        analog of the fresh WAL whose first record is the snapshot marker
+        that `etcdutl snapshot restore` writes. Contrast __init__ with
+        data_dir=..., which wipes for a fresh incarnation.
+
+        ``missing_ok``: members whose backend file is absent boot empty
+        and catch up from a peer snapshot — the in-process analog of
+        bootstrapExistingClusterNoWAL (bootstrap.go:182): a data-less
+        member joining a cluster that already has state.
+
+        ``uniform``: require every present member at ONE consistent index
+        (the etcdutl-restore contract — a restored dir is written from a
+        single snapshot). Restarting a live data dir (embed's haveWAL
+        path) passes False: members legitimately shut down a few applied
+        entries apart, and the laggards catch up from the most advanced
+        peer exactly as a slow member would at runtime.
+
+        ``members``: which on-disk member files back each new member
+        (defaults to identity). force-new-cluster passes the surviving
+        member's index so a 1-member recovery can start from whichever
+        data file still exists; the loaded backend stays bound to that
+        file, so subsequent persists continue it."""
+        import os
+
+        from etcd_tpu_torch.storage.backend import Backend
+
+        ec = cls(n_members=n_members, **kw)  # memory boot; no wipe
+        ec.data_dir = data_dir
+        disk = members if members is not None else list(range(ec.M))
+        if len(disk) != ec.M:
+            raise ServerError(
+                f"members maps {len(disk)} disk files onto {ec.M} members"
+            )
+        metas = []
+        missing: list[int] = []
+        for m in range(ec.M):
+            path = cls.member_db_path(data_dir, disk[m])
+            if missing_ok and not os.path.exists(path):
+                missing.append(m)
+                metas.append(None)
+                continue
+            be = Backend(path)
+            ms, meta = ec._member_from_backend(be, m=m)
+            ec.members[m] = ms
+            metas.append(meta)
+        present = [meta for meta in metas if meta is not None]
+        if not present:
+            raise ServerError(
+                f"no member data found under {data_dir}; cannot join an "
+                "existing cluster that has none"
+            )
+        idx = max(meta["consistent_index"] for meta in present)
+        term = max(meta["term"] for meta in present)
+        behind: list[int] = []
+        for m, meta in enumerate(metas):
+            if meta is not None and meta["consistent_index"] != idx:
+                if uniform:
+                    raise ServerError(
+                        f"member {m} restored at index "
+                        f"{meta['consistent_index']} != {idx}; a restored "
+                        "data dir must be uniform (snapshot restore writes "
+                        "every member from the same snapshot)"
+                    )
+                behind.append(m)
+        if idx > 0:
+            # synthetic device snapshot: log starts at (idx, term) with an
+            # empty tail, exactly like handle_snapshot's restore field set
+            # (models/raft.py:718-736) minus the config masks, which a
+            # restored cluster keeps at the boot-time full-voter set
+            for m in range(ec.M):
+                ec.cl.set_node(
+                    m, c=ec.c,
+                    term=term, commit=idx, applied=idx, last_index=idx,
+                    snap_index=idx, snap_term=term,
+                    applied_hash=0, snap_hash=0,
+                )
+            ec._gc_floor = idx
+        for m in missing:
+            # data-less joiner: fresh backend + applied state from the
+            # most advanced restored peer, then persist the baseline
+            ec.members[m].backend = Backend(
+                cls.member_db_path(data_dir, disk[m]), fresh=True
+            )
+            if idx > 0:
+                ec._install_peer_snapshot(m, ec.members[m], idx)
+            ec._persist(ec.members[m], term)
+        for m in behind:
+            # shut down a few entries behind the front: catch up the
+            # applied state machine from the most advanced peer
+            ec._install_peer_snapshot(m, ec.members[m], idx)
+            ec._persist(ec.members[m], term)
+        return ec
 
     def _install_peer_snapshot(self, m: int, ms: "MemberState",
                                need: int) -> None:

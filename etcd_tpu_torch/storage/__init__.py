@@ -1,3 +1,4 @@
-"""The port's storage side-channels (etcd_tpu/storage): so far the streamed
-member-snapshot transfer; the backend, schema, WAL and raft storage wait
-for the storage slice."""
+"""The port's storage (etcd_tpu/storage): the WAL record codec, the
+bucketed backend file and its schema (each member's durable applied state),
+and the streamed member-snapshot transfer; the WAL, raft storage and fleet
+checkpoints wait for their slice."""

@@ -19,6 +19,7 @@
 import ast
 import collections
 import dataclasses
+import functools
 import pathlib
 import types
 
@@ -245,13 +246,36 @@ class _HostTraffic(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-@pytest.mark.parametrize("faultless", [False, True])
-def test_epoch_rounds_make_no_host_sync(faultless):
+@functools.lru_cache(maxsize=None)
+def _two_round_end(tier):
+    """The end of a two-round run of ``tier`` ("network", "crash" or
+    "member") at C = 8 in 2 fleet chunks, the carry of the no-host-sync
+    checks: one run serves the fault and the heal epoch's checks, each of
+    which gets its own copy."""
     spec, cfg = chaos_geometry(C=8)
-    cfg = dataclasses.replace(cfg, fleet_chunks=2)
+    cfg = dataclasses.replace(cfg, fleet_chunks=2, wire_int16=tier != "member")
+    kw = {} if tier == "network" else dict(crash_p=0.2,
+                                           member_p=0.3 if tier == "member" else 0.0)
     end = {}
     tch.run_chaos(spec, cfg, C=8, rounds=2, epoch_len=1, heal_len=1, device="cpu",
-                  end=end)
+                  end=end, **kw)
+    return spec, cfg, end
+
+
+def _copy(v):
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    return v.map(lambda _, x: _copy(x)) if hasattr(v, "map") else v
+
+
+def two_round_end(tier):
+    spec, cfg, end = _two_round_end(tier)
+    return spec, cfg, {k: _copy(end[k]) for k in ("state", "inbox", "held", "crash", "key")}
+
+
+@pytest.mark.parametrize("faultless", [False, True])
+def test_epoch_rounds_make_no_host_sync(faultless):
+    spec, cfg, end = two_round_end("network")
     epoch = tch.build_chaos_epoch(cfg, spec, 3, faultless)
     prop_len = torch.zeros((5, 8), dtype=torch.int32)
     prop_data = torch.zeros((5, 1, 8), dtype=torch.int32)
@@ -270,12 +294,8 @@ def test_crash_and_member_epochs_make_no_host_sync(tier, faultless):
     """The crash tier's programs (int16 wire) and the membership and crash
     tiers' programs (int32 wire), fault and heal, in 2 fleet chunks: their
     rounds read no value on the host and copy no host data to a tensor."""
-    spec, cfg = chaos_geometry(C=8)
-    cfg = dataclasses.replace(cfg, fleet_chunks=2, wire_int16=tier == "crash")
+    spec, cfg, end = two_round_end(tier)
     member_p = 0.3 if tier == "member" else 0.0
-    end = {}
-    tch.run_chaos(spec, cfg, C=8, rounds=2, epoch_len=1, heal_len=1, crash_p=0.2,
-                  member_p=member_p, device="cpu", end=end)
     epoch = tch.build_chaos_epoch(cfg, spec, 3, faultless, with_crash=True,
                                   with_member=tier == "member")
     prop_len = torch.zeros((5, 8), dtype=torch.int32)

@@ -57,7 +57,10 @@ def test_imports_and_runs_a_round_with_jax_blocked():
     serves a put, the differential fuzz holds, and a KV round runs; with
     ``cryptography`` blocked too (the card's machine does not list it), an
     EtcdCluster on the small Spec elects a leader, serves a txn and a
-    range, and the lease tier's keep mask lands in its Cluster."""
+    range, and the lease tier's keep mask lands in its Cluster; the v3
+    gateway serves that range and /version over the wire, and a backend file
+    written through the schema loads back to the member's store with the
+    native codec."""
     code = "\n".join([
         "import sys",
         "for m in ('jax', 'jaxlib', 'flax', 'etcd_tpu', 'cryptography'):",
@@ -131,6 +134,21 @@ def test_imports_and_runs_a_round_with_jax_blocked():
         "assert ec.range(b'a', serializable=True)['kvs'][0].value == b'1'",
         "ec.cl._set_keep(_Rng(0).keep_mask(3, 0.2))",
         "assert ec.cl.eng.keep_mask.dtype == torch.bool",
+        "ec.cl.recover()",
+        "from etcd_tpu_torch.client import RemoteClient",
+        "from etcd_tpu_torch.server.v3rpc import V3Server",
+        "srv = V3Server(ec).start()",
+        "rc = RemoteClient(f'http://127.0.0.1:{srv.port}', timeout=60)",
+        "got = rc.call('/v3/kv/range', {'key': 'YQ==', 'serializable': True})",
+        "assert got['kvs'][0]['value'] == 'MQ==' and b'etcdserver' in rc.get_raw('/version')",
+        "srv.stop()",
+        "import os, tempfile",
+        "from etcd_tpu_torch.storage import schema, walcodec",
+        "from etcd_tpu_torch.storage.backend import Backend",
+        "d = tempfile.mkdtemp(); be = Backend(os.path.join(d, 'm.db'))",
+        "schema.persist_mvcc_delta(be, ec.members[0].store.kv, 0); be.close()",
+        "st = schema.load_mvcc(Backend(os.path.join(d, 'm.db')))",
+        "assert st.hash_kv() == ec.hash_kv(0) and walcodec.is_native()",
         "assert not any(m in sys.modules and sys.modules[m] is not None",
         "               for m in ('jax', 'flax', 'etcd_tpu'))",
         "print('ok')",
@@ -175,6 +193,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         EtcdCluster(n_members=3)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_lease_chaos()
+    from etcd_tpu_torch import localtester
+    from etcd_tpu_torch.embed import Config, start_etcd
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        start_etcd(Config(auto_tick=False))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        localtester.run_local_tester()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        localtester.main([])
 
 
 UNPORTED = {

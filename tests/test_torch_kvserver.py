@@ -140,10 +140,32 @@ def test_pump_takes_its_leaves_off_the_device_in_one_transfer(session):
     assert watch.pump_reads and set(watch.pump_reads) == {1}
 
 
-def test_server_refuses_a_data_dir(tmp_path):
-    with pytest.raises(kvserver.ServerError, match="storage"):
-        port_cluster(data_dir=str(tmp_path))
-    assert not any(tmp_path.iterdir())
+def test_a_data_dir_member_restarts_from_its_backend(tmp_path):
+    """A member with a data_dir stages its applied state in its backend
+    file; crashed, it comes back from that file (bootstrap.go:145), not
+    empty."""
+    ec = port_cluster(data_dir=str(tmp_path))
+    assert sorted(p.name for p in tmp_path.iterdir()) == [f"member{m}.db" for m in range(3)]
+    ms = ec.members[1]
+    txn = ms.store.kv.write_txn()
+    txn.put(b"k", b"v", 0)
+    txn.end()
+    ms.lessor.grant(7, 30)
+    ms.applied_index = 1
+    ec._persist(ms, 1)
+    ec.commit_backends()
+    assert ec.members[1].durable_index == 1
+    ec.crash_member(1)
+    assert ec.members[1].crashed and ec.members[1].store.kv.current_rev == 1
+    ec.restart_member_from_disk(1)
+    ms = ec.members[1]
+    assert not ms.crashed and ms.applied_index == ms.durable_index == 1
+    assert ms.store.kv.range(b"k")[0][0].value == b"v"
+    assert sorted(ms.lessor.leases) == [7]
+    assert ms.backend.path == ec.member_db_path(str(tmp_path), 1)
+    # the device plane has no backend path, as in the reference
+    with pytest.raises(kvserver.ServerError, match="persistence"):
+        port_cluster(data_dir=str(tmp_path), apply_plane="device")
 
 
 def test_server_runs_on_the_card_unless_asked(monkeypatch):
