@@ -44,8 +44,8 @@ Phases, each printing its lines:
   4. the bench path at full width: etcd_tpu_torch.bench's run at its
      defaults (C = 1,048,576: settle, pack, 16 rounds x (1 + 3 timed) as one
      CUDA graph, the commit check, the observability pass with TELEM=1 and
-     BENCH_BLACKBOX=1: the metered, bare and ring probes, each the best of
-     2 passes of 8 rounds here, 3 in bench.py), printing its JSON
+     BENCH_BLACKBOX=1: the metered, bare and ring probes, each one pass of
+     8 rounds here, the best of 3 in bench.py), printing its JSON
      line, with the launches counted around it (the graph's recorded
      launches times its replays, plus the eager ones: the planes add none),
      its peak memory by part, telemetry_overhead_pct (at most 10, bench.py's
@@ -137,6 +137,22 @@ Phases, each printing its lines:
      cycles, seed 0, one put a phase and a data dir (a depth cut of its
      default run; the crash-restart cycle included), its report and steps,
      healthy.
+  11. RawNode and its storage (etcd_tpu_torch/models/rawnode.py, storage/
+     {raftstorage,wal,checkpoint}.py, harness/interaction.py, examples/
+     raftexample.py), each part held to the JAX package's records in
+     RAWNODE_PIN.json (harness/rawnode_session.py's scripts): (a)
+     raftexample, tests/test_raftexample.py's operations on one Cluster(3)
+     and main(); (b) the RawNode and flow-control Ready sequences, both once
+     from the lane graphs and once eagerly, graph == eager; (c)
+     InteractionEnv on every script of tests/interaction_scripts/, every
+     command's text; (d) a RawNode group persisted through the WAL, torn,
+     dropped, replayed and rebooted: the read-back and the segment sha256;
+     (e) save_fleet and load_fleet of phase 5's fleet (C = 131,072),
+     unpacked to a dense NodeState, every leaf equal after the round trip,
+     the file's size and the save and load times; then ms per lane step,
+     tick and apply call, graph and eager, and the tensor ops and ms a
+     graph replay of one process_message, beside those of the step
+     specialized to one message type (a comparison only).
 Only with ``--phases 10d`` (a call of its own): 10d. the local tester at
 its defaults with a data dir, its report and steps against the pin's
 "localtester_default", healthy, and its wall time.
@@ -151,7 +167,7 @@ limit and their report held key for key to CHAOS_LEASE_PIN.json's.
 Cuts that keep the script inside its 1,200 s limit (PERF.md section 4):
 phases 5, 6, 7a and 7b run at C = 262,144 or 131,072, not 1,048,576, phase 7b
 in epochs of 25 rounds, phases 6 and 7b profile one eager fault round,
-phase 4's probes take the best of 2 passes, phase 5 runs 8 rounds, phase
+phase 4's probes take one pass, phase 5 runs 8 rounds, phase
 8 16 timed rounds, and phase 9b the lease tier alone.
 Then a line with the kernels' JSON record (the one kernel: at its carry
 site, and at compact_inbox on the network, crash, membership and
@@ -175,6 +191,7 @@ import collections
 import dataclasses
 import gc
 import json
+import pathlib
 import subprocess
 import sys
 import time
@@ -798,9 +815,10 @@ def free_card():
     torch.cuda.empty_cache()
 
 
-# phase 4's observability probes: the best of 2 passes of 8 rounds each,
-# not bench.py's 3 (cut to keep the script's time for phase 9)
-PHASE4_PROBE_PASSES = 2
+# phase 4's observability probes: one pass of 8 rounds each, not the best of
+# bench.py's 3 (cut to 2 passes to keep the script's time for phase 9, then
+# to 1 for phase 11)
+PHASE4_PROBE_PASSES = 1
 
 
 def phase_bench(card):
@@ -875,7 +893,8 @@ def phase_compare(res, card, rounds=8, groups=FULL_GROUPS // 8):
     of its fleet (cut from C = 1,048,576 to 131,072 to keep the script's
     time for the chaos paths), the kernel timed on the outbox of its last
     round, and device profiles of two eager rounds and one replay of a
-    fresh graph of ``rounds`` rounds."""
+    fresh graph of ``rounds`` rounds. Returns the kernel's record and the
+    packed fleet at the end, on the host."""
     import torch
 
     from etcd_tpu_torch import drive
@@ -927,7 +946,8 @@ def phase_compare(res, card, rounds=8, groups=FULL_GROUPS // 8):
           f"held before it: the packed fleet and its wire)", flush=True)
     profile_rounds("phase 5 profile graph", lambda: scan(*out, *args), rounds, card)
     scan.release()
-    return record
+    # phase 11e saves and loads this fleet; it waits on the host meanwhile
+    return record, state.map(lambda _, x: x.cpu())
 
 
 CHAOS_ROUNDS = 75      # one fault epoch of 50 and one heal epoch of 25
@@ -1755,6 +1775,232 @@ def phase_durable(card):
     return failed
 
 
+def lane_timings(session, n: int = 20) -> dict:
+    """ms a call of RawNode.step (a follower's MsgHeartbeatResp to a leader),
+    tick (the leader's) and advance (one committed proposal) on a lane at
+    test_rawnode.py's Spec on the card, each the mean of ``n`` calls after a
+    first one (which, from the graphs, is the warm-up and capture): {name:
+    (first ms, mean ms)}; inside ``eager_lanes()`` the calls run eagerly. A
+    call returns host memory, so it includes the card's work."""
+    from etcd_tpu_torch.models.rawnode import HostMsg
+    from etcd_tpu_torch.types import MSG_APP_RESP, MSG_HEARTBEAT_RESP, MSG_VOTE_RESP
+
+    p = session.port_package(None)
+    spec, cfg = p.Spec(**session.RAWNODE_SPEC), p.RaftConfig(**session.RAWNODE_CFG)
+    rn, s = session._boot(p, spec, cfg)
+    rn.campaign()
+    for q in (1, 2):
+        rn.step(HostMsg(type=MSG_VOTE_RESP, to=0, frm=q, term=rn.n.term))
+    rd = rn.ready()
+    session._persist(s, rd)
+    rn.advance(rd)
+
+    def clock(fn):
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    def committed():
+        rn.propose(7)
+        for q in (1, 2):
+            rn.step(HostMsg(type=MSG_APP_RESP, to=0, frm=q, term=rn.n.term,
+                            index=rn.n.last_index))
+        return rn.ready()
+
+    out = {}
+    for name, prep, call in (
+            ("step", lambda: None, lambda _: rn.step(HostMsg(
+                type=MSG_HEARTBEAT_RESP, to=0, frm=1, term=rn.n.term))),
+            ("tick", lambda: None, lambda _: rn.tick()),
+            ("advance", committed, lambda rd: rn.advance(rd))):
+        times = []
+        for _ in range(n + 1):
+            arg = prep()
+            times.append(clock(lambda: call(arg)))
+            rn.ready()
+        out[name] = (times[0], sum(times[1:]) / n)
+    return out
+
+
+def process_message_ops(session, n: int = 20):
+    """The tensor ops (one kernel each on the card) of one process_message
+    on a lane at test_rawnode.py's Spec, and ms a replay of its CUDA graph
+    (the mean of ``n`` after the capture): the lane's function, which
+    handles every message type, and, for comparison only, the function
+    specialized by RaftConfig.message_classes to one message type alone
+    (which no RawNode runs: a handler left out can leave lane state that a
+    later message of another type reads). Returns {label: (ops, ms)}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from etcd_tpu_torch.models import rawnode
+    from etcd_tpu_torch.types import MSG_APP, MSG_APP_RESP, MSG_HEARTBEAT, MSG_PROP, Spec
+    from etcd_tpu_torch.utils.config import RaftConfig
+
+    spec = Spec(**session.RAWNODE_SPEC)
+    cfg = RaftConfig(**session.RAWNODE_CFG)
+    p = session.port_package(None)
+    with rawnode.eager_lanes():
+        rn, _ = session._boot(p, spec, cfg)
+        rn.campaign()
+    dev = torch.device("cuda")
+    out = {}
+    for label, mtype in (("generic", None), ("MsgApp only", MSG_APP),
+                         ("MsgAppResp only", MSG_APP_RESP),
+                         ("MsgHeartbeat only", MSG_HEARTBEAT), ("MsgProp only", MSG_PROP)):
+        c = cfg if mtype is None else dataclasses.replace(
+            cfg, local_steps=(), message_classes=(mtype,))
+        fn = rawnode.LaneFunction(c, spec, "step", dev, True)
+        hm = rawnode.HostMsg(type=MSG_APP_RESP if mtype is None else mtype, to=0,
+                             frm=1, term=1, index=2)
+        host = np.concatenate([rn.n.w, rawnode.msg_words(spec, hm)])
+        words = torch.from_numpy(host).to(dev)
+        fn.fn(words)                                  # warm
+        _, ops = count_ops(lambda: fn.fn(words))
+        fn(host)                                      # the capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(host)
+        out[label] = (ops, (time.perf_counter() - t0) * 1e3 / n)
+    return out
+
+
+def phase_rawnode(card, packed=None):
+    """Phase 11, RawNode and its storage on the card, each part held to the
+    JAX package's records in RAWNODE_PIN.json (etcd_tpu_torch/harness/
+    rawnode_session.py's scripts): (a) raftexample (tests/test_raftexample.py's
+    operations on one Cluster(3) and main()); (b) the RawNode and
+    flow-control Ready sequences (tests/test_rawnode.py,
+    tests/test_flow_control.py, the RecordingStorage drive), both once from
+    the lane graphs and once eagerly, graph == eager; (c) InteractionEnv on
+    every script of tests/interaction_scripts/, text equal; (d) a RawNode
+    group persisted through the WAL in a temporary directory, torn, dropped,
+    replayed into fresh MemoryStorages and rebooted: the read-back and the
+    segment digests; (e) save_fleet and load_fleet of phase 5's fleet at its
+    width (C = 131,072; ``packed``, or a fleet settled here when phase 5 did
+    not run), unpacked to a dense NodeState, every leaf equal after
+    the round trip, with the file's size and the save and load times. Prints
+    ms per lane step, tick and apply call (graph and eager) and the tensor
+    ops and graph ms of one process_message (process_message_ops). Returns
+    the failures."""
+    import contextlib
+    import tempfile
+
+    import torch
+
+    from etcd_tpu_torch import drive
+    from etcd_tpu_torch.harness import rawnode_session as session
+    from etcd_tpu_torch.models.rawnode import eager_lanes
+    from etcd_tpu_torch.models.engine import empty_inbox, init_fleet
+    from etcd_tpu_torch.models.state import unpack_fleet
+    from etcd_tpu_torch.storage.checkpoint import load_fleet, save_fleet
+
+    pin = json.loads(session.PIN.read_text())
+    failed = []
+
+    def check(part, got, want):
+        got = json.loads(json.dumps(got))
+        if got != want:
+            failed.append(f"phase {part}: differs from {session.PIN.name}")
+        return got == want
+
+    results = {}
+    p = session.port_package(None)
+    for mode, within in (("graph", contextlib.nullcontext), ("eager", eager_lanes)):
+        t0 = time.perf_counter()
+        with within():
+            ex = session.run_raftexample(p)
+            t1 = time.perf_counter()
+            rn = {name: session.run_rawnode(p, name) for name in session.RAWNODE_SCRIPTS}
+        t2 = time.perf_counter()
+        results[mode] = (ex, rn)
+        ok_a = check("11a", ex, pin["raftexample"])
+        ok_b = check("11b", rn, pin["rawnode"])
+        print(f"phase 11a raftexample ({mode}) on {card}: {len(ex['ops'])} operations "
+              f"in {t1 - t0:.1f}s; against {session.PIN.name}: "
+              f"{'equal' if ok_a else 'DIFFERS'}; main printed {ex['main']!r}", flush=True)
+        print(f"phase 11b RawNode and flow-control Ready sequences ({mode}): "
+              f"{len(rn)} scripts, {sum(len(v) for v in rn.values())} records in "
+              f"{t2 - t1:.1f}s; against {session.PIN.name}: "
+              f"{'equal' if ok_b else 'DIFFER on ' + str([k for k in rn if json.loads(json.dumps(rn[k])) != pin['rawnode'][k]])}",
+              flush=True)
+    same = json.loads(json.dumps(results["graph"])) == json.loads(json.dumps(results["eager"]))
+    if not same:
+        failed.append("phase 11a/11b: graph != eager")
+    print(f"phase 11a/11b graph == eager: {same}", flush=True)
+
+    t0 = time.perf_counter()
+    differ = [name for name in session.interaction_names()
+              if session.run_interaction(p, name) != pin["interaction"][name]]
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        group = session.run_wal_group(p, d)
+    t2 = time.perf_counter()
+    print(f"phase 11c InteractionEnv on {len(session.interaction_names())} scripts "
+          f"(graph) in {t1 - t0:.1f}s; text against {session.PIN.name}: "
+          f"{'equal' if not differ else 'differs on ' + str(differ)}", flush=True)
+    if differ:
+        failed.append(f"phase 11c: the interaction text differs on {differ}")
+    ok_d = check("11d", group, pin["wal_group"])
+    print(f"phase 11d a RawNode group through the WAL ({len(group['files'])} segments, "
+          f"torn, replayed, rebooted) in {t2 - t1:.1f}s; read-back and segment sha256 "
+          f"against {session.PIN.name}: {'equal' if ok_d else 'DIFFER'} (rebooted "
+          f"applied {[v['applied'] for v in group['reboot'].values()]})", flush=True)
+    for mode, within in (("graph", contextlib.nullcontext), ("eager", eager_lanes)):
+        with within():
+            ms = lane_timings(session)
+        print(f"phase 11 lane calls ({mode}) on {card}, ms a call at test_rawnode.py's "
+              f"Spec, the mean of 20 after the first: " + ", ".join(
+                  f"{k} {v[1]:.3f} (first {v[0]:.1f})" for k, v in ms.items()), flush=True)
+    ops = process_message_ops(session)
+    print(f"phase 11 process_message at test_rawnode.py's Spec on {card}, tensor ops "
+          f"(kernels on the card) and ms a graph replay (the mean of 20 after the "
+          f"capture): the lane's function (every message type) and, for comparison "
+          f"only, specialized to one type: " + ", ".join(
+              f"{k} {v[0]} ops {v[1]:.3f} ms" for k, v in ops.items()), flush=True)
+    free_card()
+
+    spec = drive.bench_spec()
+    if packed is None:      # phase 5 did not run: settle a fleet of its width
+        C, cfg = FULL_GROUPS // 8, drive.settle_config(spec)
+        dense, _, _ = drive.settle_leaders(
+            cfg, spec, init_fleet(spec, C, device="cuda"),
+            empty_inbox(spec, C, cfg.wire_int16, cfg.inbox_bound, device="cuda"),
+            device="cuda")
+        source = "a settled fleet (phase 5 did not run)"
+    else:
+        dense = unpack_fleet(spec, packed.map(lambda _, x: x.cuda()))
+        source = "phase 5's fleet, unpacked"
+    del packed
+    C = dense.term.shape[-1]
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/fleet.npz"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_fleet(path, dense, round_no=11)
+        t1 = time.perf_counter()
+        back, meta = load_fleet(path)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        size = pathlib.Path(path).stat().st_size
+    bad = leaves_equal(dense, back) + ([] if meta["round"] == 11 else ["meta"])
+    dense_bytes = sum(x.numel() * x.element_size() for _, x in dense.items())
+    print(f"phase 11e save_fleet/load_fleet of {source} (C = {C}, dense NodeState "
+          f"{dense_bytes / 2**20:.1f} MiB) on {card}: file {size / 2**20:.1f} MiB, "
+          f"save {t1 - t0:.2f}s, load to the card {t2 - t1:.2f}s; every leaf equal "
+          f"after the round trip: {not bad} {bad or ''}", flush=True)
+    if bad:
+        failed.append(f"phase 11e: the fleet round trip differs on {bad}")
+    del dense, back
+    free_card()
+    for f in failed:
+        print(f"phase 11 FAILED: {f}", flush=True)
+    return failed
+
+
 def phase_tester_default(card):
     """Phase 10d (only with ``--phases 10d``, a call of its own): the local
     tester at its defaults with a data dir (``python -m
@@ -1872,7 +2118,7 @@ def profile_rounds(label, fn, rounds, card, profiled=PROFILED):
               f"{e.count / rounds:8.1f}x  {e.key[:140]}")
 
 
-PHASES = ("1", "2", "3", "4", "5", "6", "7a", "7b", "8", "9", "10")
+PHASES = ("1", "2", "3", "4", "5", "6", "7a", "7b", "8", "9", "10", "11")
 # phases that run only when named in --phases
 EXTRA_PHASES = ("9c", "10d")
 
@@ -1930,7 +2176,7 @@ def main(argv=None) -> int:
         res, launches = phase_bench(smi)
         done(4)
         if "5" in want:
-            records["carry"] = phase_compare(res, smi)
+            records["carry"], records["fleet"] = phase_compare(res, smi)
             done(5)
         del res
         free_card()
@@ -1969,6 +2215,9 @@ def main(argv=None) -> int:
     if "10d" in want:
         failed += phase_tester_default(smi)
         done("10d")
+    if "11" in want:
+        failed += phase_rawnode(smi, records.pop("fleet", None))
+        done(11)
     if want != list(PHASES):
         print(f"phases {args.phases} in {time.perf_counter() - t0:.1f}s (a subset: no "
               "kernels or result line)")

@@ -64,23 +64,46 @@ NOTHING = dict(rounds=20, epoch_len=20, heal_len=10, seed=2, drop_p=0.0, partiti
                delay_p=0.08, crash_p=0.12, crash=CrashConfig(down_rounds=2, durability="none"))
 
 
-@pytest.fixture(scope="module")
-def nothing():
-    """The run in both packages with both planes (the one JAX epoch-program
-    pair of these tests), the port's rounds recorded."""
+def nothing_args():
     spec, cfg = chaos_geometry()
+    return (spec, cfg, 16, {"crash": JCrashConfig(down_rounds=2, durability="none")},
+            dict(telemetry=True, blackbox=True, **NOTHING))
+
+
+# the run whose JAX side tier-1 reads from CHAOS_RUN_PIN.npz
+# (tests/test_torch_chaos.py run_both)
+PINNED_RUNS = {"blackbox_nothing": nothing_args}
+
+
+def nothing_run(live: bool):
+    """The run in both packages with both planes (the one JAX epoch-program
+    pair of these tests; pinned unless ``live``), the port's rounds
+    recorded."""
+    spec, cfg, C, jax_kw, kw = nothing_args()
     mp = pytest.MonkeyPatch()
     rec = Recorder(mp)
     try:
-        out = run_both(spec, cfg, 16, jax_kw={"crash": JCrashConfig(
-            **{"down_rounds": 2, "durability": "none"})}, telemetry=True, blackbox=True,
-            **NOTHING)
+        out = run_both(spec, cfg, C, jax_kw, pin=None if live else "blackbox_nothing", **kw)
     finally:
         mp.undo()
     return spec, out, rec.rounds
 
 
+@pytest.fixture(scope="module")
+def nothing():
+    return nothing_run(live=False)
+
+
+@pytest.mark.slow
+def test_run_with_both_planes_equals_jax_live():
+    check_both_planes(nothing_run(live=True))
+
+
 def test_run_with_both_planes_equals_jax(nothing):
+    check_both_planes(nothing)
+
+
+def check_both_planes(nothing):
     _, (jrep, trep, jout, end), _ = nothing
     assert_same_run(jrep, trep, jout, end)
     assert list(trep) == list(jrep)

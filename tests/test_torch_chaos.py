@@ -5,7 +5,9 @@
 * ``run_chaos`` at C = 16 under chaos_run.py's geometry (one fault epoch and
   one heal epoch of 10 rounds, plus the WaitHealth heal epochs it needs):
   the report, and the final state, inbox, held buffer and key, equal to the
-  JAX run's on every leaf; the epoch makes no host sync in its rounds, nor
+  JAX run's on every leaf (tier-1 reads the JAX run from CHAOS_RUN_PIN.npz,
+  as do the crash, membership and black-box tests' runs; the slow twins run
+  it live); the epoch makes no host sync in its rounds, nor
   do the crash and membership tiers' epochs (tests/test_torch_crash.py and
   tests/test_torch_member.py compare those with JAX);
 * ``python -m etcd_tpu_torch.chaos_run``: its JSON keys (read from the JAX
@@ -20,7 +22,9 @@ import ast
 import collections
 import dataclasses
 import functools
+import json
 import pathlib
+import pickle
 import types
 
 import jax.numpy as jnp
@@ -171,10 +175,82 @@ def test_check_invariants_equals_jax(seed):
 # ---------------------------------------------------------------------------
 
 
-def run_both(spec, cfg, C, jax_kw=None, **kw):
-    """run_chaos in both packages; the JAX run's last epoch outputs are
-    caught by wrapping its epoch programs. ``jax_kw`` replaces arguments on
-    the JAX side (its own config dataclasses)."""
+# The JAX package's side of the tier-1 run_chaos comparisons (each test
+# module's PINNED_RUNS), made by tests/make_chaos_run_pins.py: for each run,
+# the report (pickled) and the last epoch program's outputs, leaf by leaf.
+CHAOS_RUN_PIN = ROOT / "CHAOS_RUN_PIN.npz"
+
+
+class PinnedTree:
+    """A JAX dataclass of a pinned run, read back: its fields as attributes
+    (numpy arrays or PinnedTrees), listed in ``__dataclass_fields__`` as
+    jax_np reads them."""
+
+    def __init__(self, fields: dict):
+        self.__dict__.update(fields)
+        self.__dataclass_fields__ = dict.fromkeys(fields)
+
+
+def _flatten(x, key: str, arrays: dict):
+    """A run's output tree -> a JSON-able description, its arrays into
+    ``arrays`` under their paths."""
+    if x is None:
+        return None
+    if dataclasses.is_dataclass(x):
+        return {"fields": {f.name: _flatten(getattr(x, f.name), f"{key}.{f.name}", arrays)
+                           for f in dataclasses.fields(x)}}
+    if isinstance(x, (tuple, list)):
+        return {"items": [_flatten(v, f"{key}.{i}", arrays) for i, v in enumerate(x)]}
+    arrays[key] = np.asarray(x)
+    return {"array": key}
+
+
+def _unflatten(desc, arrays):
+    if desc is None:
+        return None
+    if "fields" in desc:
+        return PinnedTree({k: _unflatten(v, arrays) for k, v in desc["fields"].items()})
+    if "items" in desc:
+        return tuple(_unflatten(v, arrays) for v in desc["items"])
+    return arrays[desc["array"]]
+
+
+def run_fingerprint(spec, cfg, C, kw) -> str:
+    """What a pinned run was made from: the spec, config, fleet width and
+    run_chaos's arguments (the port's; the JAX side's jax_kw are their
+    counterparts)."""
+    return repr((spec, cfg, C, sorted((k, repr(v)) for k, v in kw.items())))
+
+
+def pin_entry(name, jrep, jout, fingerprint) -> dict:
+    """The npz arrays that pin one run under ``name``."""
+    arrays = {}
+    desc = _flatten(jout, f"{name}/out", arrays)
+    arrays[f"{name}/report"] = np.frombuffer(pickle.dumps(jrep), np.uint8)
+    arrays[f"{name}/meta"] = np.array(json.dumps({"out": desc, "fingerprint": fingerprint}))
+    return arrays
+
+
+@functools.lru_cache(maxsize=1)
+def _pin_arrays() -> dict:
+    with np.load(CHAOS_RUN_PIN, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def pinned_jax_run(name, fingerprint):
+    """(report, last epoch outputs) of the JAX run pinned under ``name``."""
+    arrays = _pin_arrays()
+    meta = json.loads(str(arrays[f"{name}/meta"]))
+    assert meta["fingerprint"] == fingerprint, \
+        f"{name}: the pinned run was made from other arguments; run " \
+        "tests/make_chaos_run_pins.py"
+    return pickle.loads(arrays[f"{name}/report"].tobytes()), _unflatten(meta["out"], arrays)
+
+
+def run_jax(spec, cfg, C, jax_kw=None, **kw):
+    """The JAX package's run_chaos: (report, last epoch outputs), caught by
+    wrapping its epoch programs. ``jax_kw`` replaces arguments on the JAX
+    side (its own config dataclasses)."""
     last = {}
     orig = jch._epoch_program
 
@@ -192,9 +268,20 @@ def run_both(spec, cfg, C, jax_kw=None, **kw):
         jrep = jch.run_chaos(jspec(spec), jcfg(cfg), C=C, **{**kw, **(jax_kw or {})})
     finally:
         jch._epoch_program = orig
+    return jrep, last["out"]
+
+
+def run_both(spec, cfg, C, jax_kw=None, pin=None, **kw):
+    """run_chaos in both packages: (JAX report, port report, the JAX run's
+    last epoch outputs, the port run's end). With ``pin``, the JAX side is
+    the run pinned under that name (tier-1); without, it runs live."""
+    if pin is None:
+        jrep, jout = run_jax(spec, cfg, C, jax_kw, **kw)
+    else:
+        jrep, jout = pinned_jax_run(pin, run_fingerprint(spec, cfg, C, kw))
     end = {}
     trep = tch.run_chaos(spec, cfg, C=C, device="cpu", end=end, **kw)
-    return jrep, trep, last["out"], end
+    return jrep, trep, jout, end
 
 
 def assert_same_run(jrep, trep, jout, end):
@@ -210,14 +297,33 @@ def assert_same_run(jrep, trep, jout, end):
     assert np.array_equal(np.asarray(jkey), end["key"].numpy().astype(np.uint32))
 
 
+SMALL_RUN = dict(rounds=20, epoch_len=10, heal_len=10, seed=0)
+
+
+def small_run_args():
+    spec, cfg = chaos_geometry()
+    return spec, cfg, 16, None, SMALL_RUN
+
+
+# the runs whose JAX side tier-1 reads from CHAOS_RUN_PIN.npz:
+# name -> () -> (spec, cfg, C, jax_kw, run_chaos's arguments)
+PINNED_RUNS = {"chaos_small": small_run_args}
+
+
 @pytest.fixture(scope="module")
 def small_run():
-    spec, cfg = chaos_geometry()
-    return run_both(spec, cfg, 16, rounds=20, epoch_len=10, heal_len=10, seed=0)
+    spec, cfg, C, jax_kw, kw = small_run_args()
+    return run_both(spec, cfg, C, jax_kw, pin="chaos_small", **kw)
 
 
 def test_run_chaos_equals_jax(small_run):
     assert_same_run(*small_run)
+
+
+@pytest.mark.slow
+def test_run_chaos_equals_jax_live():
+    spec, cfg, C, jax_kw, kw = small_run_args()
+    assert_same_run(*run_both(spec, cfg, C, jax_kw, **kw))
 
 
 def test_run_chaos_report_is_chaos_runs(small_run):

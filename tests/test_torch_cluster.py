@@ -2,15 +2,21 @@
 
 Each scenario script (the rafttest-style scripts of tests/test_raft_scenarios.py,
 tests/test_confchange.py and tests/test_replication.py, with a ticking
-stabilize cut from 64 rounds to 6, plus a snapshot catch-up) runs once on
-each package's Cluster; every round either one
-steps is recorded, and the two records must be equal on every state and
-inbox leaf after every step, besides the script's own assertions holding
-on both. The clusters run two groups, which both packages pad to 16 lanes,
-on the spec and config of tests/test_torch_general.py, so the JAX program is
-the one that test compiles.
+stabilize cut from 64 rounds to 6, plus a snapshot catch-up) runs on the
+port's Cluster; every round it steps is recorded, and the record must equal
+the JAX Cluster's on every state and inbox leaf after every step, besides
+the script's own assertions holding. The tier-1 cases hold the port to the
+JAX Cluster's record in CLUSTER_SCENARIO_PIN.json (a digest of each leaf a
+round, the last round's leaves in full; tests/make_cluster_pins.py makes it),
+so that they trace no JAX program; their slow twins run both packages live.
+The clusters run two groups, which both packages pad to 16 lanes, on the
+spec and config of tests/test_torch_general.py, so the JAX program is the
+one that test compiles.
 """
 import dataclasses
+import hashlib
+import json
+import pathlib
 
 import numpy as np
 import pytest
@@ -38,6 +44,7 @@ from torch_jax_memory import release_jax_memory  # noqa: F401  (autouse)
 
 SPEC = Spec(M=5, L=16, E=2, K=2, W=4, R=2, A=2)
 CFG = RaftConfig()
+PIN_PATH = pathlib.Path(__file__).resolve().parents[1] / "CLUSTER_SCENARIO_PIN.json"
 
 torch.set_num_threads(1)
 
@@ -85,6 +92,40 @@ def both(script, spec=SPEC, cfg=CFG, **kw):
         assert diff(js, ts) == [], f"step {i}: state leaves differ"
         assert diff(ji, ti) == [], f"step {i}: inbox leaves differ"
     return tlog
+
+
+def leaf_digest(a: np.ndarray) -> str:
+    """A leaf's dtype, shape and bytes, hashed (16 hex digits)."""
+    h = hashlib.sha256(f"{a.dtype.str}{a.shape}".encode())
+    h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
+
+
+def pin_record(log) -> dict:
+    """A scenario's record for the pin: each round's leaf digests, the last
+    round's leaves in full."""
+    st, ib = log[-1]
+    full = {k: {"dtype": v.dtype.str, "value": v.tolist()} for k, v in st.items()}
+    return {"rounds": [[{k: leaf_digest(v) for k, v in part.items()} for part in rnd]
+                       for rnd in log],
+            "final": {"state": full,
+                      "inbox": {k: {"dtype": v.dtype.str, "value": v.tolist()}
+                                for k, v in ib.items()}}}
+
+
+def held_to_pin(name, log) -> None:
+    """The port's record ``log`` against the pin's, naming the first round
+    and leaf that differ."""
+    want = json.loads(PIN_PATH.read_text())["scenarios"][name]
+    for i, (rnd, w) in enumerate(zip(log, want["rounds"])):
+        for part, wpart, what in zip(rnd, w, ("state", "inbox")):
+            bad = [k for k in wpart if leaf_digest(part[k]) != wpart[k]]
+            assert not bad and set(part) == set(wpart), \
+                f"round {i}: {what} leaves differ from the JAX Cluster's: {bad}"
+    assert len(log) == len(want["rounds"]), (len(log), len(want["rounds"]))
+    for part, what in zip(log[-1], ("state", "inbox")):
+        for k, v in want["final"][what].items():
+            assert np.array_equal(part[k], np.array(v["value"], dtype=v["dtype"])), (what, k)
 
 
 # a ticking stabilize never drains (heartbeats every round): the JAX scripts
@@ -184,12 +225,27 @@ SCRIPTS = {
 VOTERS = {"joint_two_changes_auto_leave": [True, True, True, False, False]}
 
 
-@pytest.mark.parametrize("name", sorted(SCRIPTS))
-def test_scenario_equals_jax(name):
-    log = both(SCRIPTS[name], n_members=5, C=2, voters=VOTERS.get(name))
+def check_snapshot_path(name, log) -> None:
     if name == "snapshot_catch_up":
         assert any((ib["type"] == MSG_SNAP).any() for _, ib in log)
         assert any((st["pr_state"][0, 4] == PR_SNAPSHOT).any() for st, _ in log)
+
+
+@pytest.mark.parametrize("name", sorted(SCRIPTS))
+def test_scenario_equals_jax(name):
+    log = []
+    tcl = recorded(TCluster(spec=SPEC, cfg=CFG, device="cpu", n_members=5, C=2,
+                            voters=VOTERS.get(name)), log, to_numpy)
+    SCRIPTS[name](tcl, tcc)
+    held_to_pin(name, log)
+    check_snapshot_path(name, log)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", sorted(SCRIPTS))
+def test_scenario_equals_jax_live(name):
+    log = both(SCRIPTS[name], n_members=5, C=2, voters=VOTERS.get(name))
+    check_snapshot_path(name, log)
 
 
 @pytest.mark.slow

@@ -221,16 +221,31 @@ NOTHING = dict(RUN, seed=1, drop_p=0.0, partition_p=0.0, delay_p=0.08, crash_p=0
                crash=CrashConfig(down_rounds=2, durability="none"))
 
 
+def crash_run_args(kw):
+    spec, cfg = chaos_geometry()
+    return spec, cfg, 16, {"crash": JCrashConfig(**dataclasses.asdict(kw["crash"]))}, kw
+
+
+# the runs whose JAX side tier-1 reads from CHAOS_RUN_PIN.npz
+# (tests/test_torch_chaos.py run_both)
+PINNED_RUNS = {"crash_honest": lambda: crash_run_args(HONEST),
+               "crash_nothing": lambda: crash_run_args(NOTHING)}
+
+
+def crash_runs_of(live: bool) -> dict:
+    """Both runs in both packages (one pair of JAX epoch programs: the
+    durability model is an operand), the JAX side pinned unless ``live``."""
+    out = {}
+    for name in ("honest", "nothing"):
+        spec, cfg, C, jax_kw, kw = PINNED_RUNS[f"crash_{name}"]()
+        out[name] = run_both(spec, cfg, C, jax_kw, pin=None if live else f"crash_{name}",
+                             **kw)
+    return out
+
+
 @pytest.fixture(scope="module")
 def crash_runs():
-    """Both runs in both packages (one pair of JAX epoch programs: the
-    durability model is an operand)."""
-    spec, cfg = chaos_geometry()
-    out = {}
-    for name, kw in (("honest", HONEST), ("nothing", NOTHING)):
-        out[name] = run_both(spec, cfg, 16, jax_kw={"crash": JCrashConfig(
-            **dataclasses.asdict(kw["crash"]))}, **kw)
-    return out
+    return crash_runs_of(live=False)
 
 
 def assert_same_crash_state(jcrash, tcrash):
@@ -257,6 +272,13 @@ def test_persist_nothing_run_equals_jax_and_trips_the_checker(crash_runs):
     assert trep["crashes_injected"] > 0 and trep["entries_lost_fsync"] > 0
     assert trep["lost_commit"] > 0
     assert trep["crash_durability"] == "none"
+
+
+@pytest.mark.slow
+def test_crash_runs_equal_jax_live():
+    for jrep, trep, jout, end in crash_runs_of(live=True).values():
+        assert_same_run(jrep, trep, jout, end)
+        assert_same_crash_state(jout[3], end["crash"])
 
 
 def test_crash_report_keys_are_jaxs(crash_runs):

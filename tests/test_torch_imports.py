@@ -60,7 +60,9 @@ def test_imports_and_runs_a_round_with_jax_blocked():
     range, and the lease tier's keep mask lands in its Cluster; the v3
     gateway serves that range and /version over the wire, and a backend file
     written through the schema loads back to the member's store with the
-    native codec."""
+    native codec; ``python -m etcd_tpu_torch.examples.raftexample --device
+    cpu`` runs raftexample's demo, and a RawNode group's WAL written by the
+    port replays into a MemoryStorage that a rebooted RawNode applies."""
     code = "\n".join([
         "import sys",
         "for m in ('jax', 'jaxlib', 'flax', 'etcd_tpu', 'cryptography'):",
@@ -149,6 +151,27 @@ def test_imports_and_runs_a_round_with_jax_blocked():
         "schema.persist_mvcc_delta(be, ec.members[0].store.kv, 0); be.close()",
         "st = schema.load_mvcc(Backend(os.path.join(d, 'm.db')))",
         "assert st.hash_kv() == ec.hash_kv(0) and walcodec.is_native()",
+        "import contextlib, io, runpy",
+        "sys.argv = ['raftexample', '--device', 'cpu']; out = io.StringIO()",
+        "with contextlib.redirect_stdout(out):",
+        "    try:",
+        "        runpy.run_module('etcd_tpu_torch.examples.raftexample', run_name='__main__')",
+        "    except SystemExit as e:",
+        "        assert e.code == 0, e.code",
+        "assert \"node 2: {'foo': 'bar', 'hello': 'world', 'x': '42'}\" in out.getvalue(), out.getvalue()",
+        "from etcd_tpu_torch.models.rawnode import RawNode",
+        "from etcd_tpu_torch.storage import raftstorage, wal",
+        "from etcd_tpu_torch.harness import rawnode_session",
+        "assert 'etcd_tpu' not in sys.modules or sys.modules['etcd_tpu'] is None",
+        "g = rawnode_session.run_wal_group(rawnode_session.port_package('cpu'), tempfile.mkdtemp())",
+        "assert g['reboot']['2']['applied'] == g['reboot']['0']['applied'] > 1, g['reboot']",
+        "w = wal.WAL(tempfile.mkdtemp(), metadata=b'm')",
+        "w.save({'term': 1, 'vote': 0, 'commit': 1}, [{'index': 1, 'term': 1, 'type': 0, 'data': 5}])",
+        "ms, _ = raftstorage.bootstrap_from_wal(wal.WAL(w.dir))",
+        "ms.apply_snapshot(raftstorage.Snapshot(meta=raftstorage.SnapshotMeta(index=1, term=1,",
+        "    conf_state=raftstorage.ConfState(voters=(0,)))))",
+        "rn = RawNode(RaftConfig(), Spec(M=1, L=8, E=1, K=1, W=2, R=1, A=1), ms, 0, device='cpu')",
+        "rn.campaign(); assert rn.status().soft_state.role == 3",
         "assert not any(m in sys.modules and sys.modules[m] is not None",
         "               for m in ('jax', 'flax', 'etcd_tpu'))",
         "print('ok')",
@@ -202,6 +225,23 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         localtester.run_local_tester()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         localtester.main([])
+    from etcd_tpu_torch.examples import raftexample
+    from etcd_tpu_torch.harness.interaction import InteractionEnv
+    from etcd_tpu_torch.models.rawnode import RawNode
+    from etcd_tpu_torch.storage.checkpoint import load_fleet
+    from etcd_tpu_torch.storage.raftstorage import MemoryStorage
+    from etcd_tpu_torch.utils.config import RaftConfig
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RawNode(RaftConfig(), spec, MemoryStorage(), 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InteractionEnv()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        raftexample.Cluster(3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        raftexample.main([])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_fleet("a file that is never opened.npz")
 
 
 UNPORTED = {

@@ -434,15 +434,35 @@ def assert_same_crash_state(jcrash, tcrash):
     assert diff(jax_np(jcrash.metrics), to_numpy(tcrash.metrics)) == []
 
 
-@pytest.fixture(scope="module")
-def member_run():
+def member_run_args():
     spec, cfg = member_geometry()
     assert not cfg.wire_int16
-    return run_both(spec, cfg, 16, jax_kw=jax_kw(MEMBER), **MEMBER)
+    return spec, cfg, 16, jax_kw(MEMBER), MEMBER
+
+
+# the run whose JAX side tier-1 reads from CHAOS_RUN_PIN.npz
+# (tests/test_torch_chaos.py run_both)
+PINNED_RUNS = {"member": member_run_args}
+
+
+@pytest.fixture(scope="module")
+def member_run():
+    spec, cfg, C, jkw, kw = member_run_args()
+    return run_both(spec, cfg, C, jkw, pin="member", **kw)
+
+
+@pytest.mark.slow
+def test_member_run_equals_jax_live():
+    spec, cfg, C, jkw, kw = member_run_args()
+    check_member_run(run_both(spec, cfg, C, jkw, **kw))
 
 
 def test_member_run_equals_jax(member_run):
-    jrep, trep, jout, end = member_run
+    check_member_run(member_run)
+
+
+def check_member_run(run):
+    jrep, trep, jout, end = run
     assert_same_run(jrep, trep, jout, end)
     assert_same_crash_state(jout[3], end["crash"])
     assert list(trep) == list(jrep)

@@ -8,7 +8,8 @@ wire must be equal, and the JAX wire must carry only the message classes the
 port handles, which is what makes the restricted port a sound stand-in for
 the full program. The drop case cuts one follower per group in a seeded half
 of the groups for two rounds, driving the reject -> probe -> catch-up arms.
-Each JAX program compiles once, in the module fixture.
+Tier-1 reads the JAX rounds from CHAOS_RUN_PIN.npz (tests/
+make_chaos_run_pins.py); the slow twin traces the JAX programs live.
 """
 import dataclasses
 
@@ -26,6 +27,7 @@ from etcd_tpu_torch import drive
 from etcd_tpu_torch.convert import to_numpy
 from etcd_tpu_torch.models import engine as teng
 
+from test_torch_chaos import _pin_arrays
 from torch_jax_memory import release_jax_memory  # noqa: F401  (autouse)
 
 C = 8
@@ -45,13 +47,10 @@ def _diff(a: dict, b: dict) -> list:
             or not np.array_equal(a[k], b[k])]
 
 
-@pytest.fixture(scope="module")
-def traj():
-    """Per round: (phase, jax state, jax wire, port state, port wire) as
-    numpy dicts."""
+def jax_trajectory() -> list:
+    """The JAX side, per round: (phase, the round's inputs, JAX state, JAX
+    wire) as numpy; the first row is the fresh fleet, with no inputs."""
     spec_t = drive.bench_spec()
-    cfg_t = drive.settle_config(spec_t)
-    steady_t = drive.steady_config(cfg_t)
     spec = JSpec(**dataclasses.asdict(spec_t))
     cfg = JRaftConfig(pre_vote=True, check_quorum=True, max_inflight=4,
                       inbox_bound=4, coalesce_commit_refresh=True,
@@ -63,12 +62,9 @@ def traj():
     M, E = spec.M, spec.E
     js = jeng.init_fleet(spec, C, seed=SEED)
     ji = jeng.empty_inbox(spec, C, True, cfg.inbox_bound)
-    ts = teng.init_fleet(spec_t, C, seed=SEED, device="cpu")
-    ti = teng.empty_inbox(spec_t, C, True, cfg_t.inbox_bound, device="cpu")
     snames = JNodeState.__dataclass_fields__
     mnames = ji.__dataclass_fields__
-    out = [("init", _jax_np(js, snames), _jax_np(ji, mnames),
-            to_numpy(ts), to_numpy(ti))]
+    out = [("init", (), _jax_np(js, snames), _jax_np(ji, mnames))]
 
     def args(keep, hup=None, prop=False):
         z2 = np.zeros((M, C), np.int32)
@@ -81,26 +77,24 @@ def traj():
         h = no if hup is None else hup
         return (plen, pdata, zp, z2, h, no, keep)
 
-    def run(phase, jstep, tstep, a):
-        nonlocal js, ji, ts, ti
+    def run(phase, jstep, a):
+        nonlocal js, ji
         js, ji = jstep(js, ji, *a)
-        ts, ti = tstep(ts, ti, *[torch.from_numpy(x) for x in a])
-        out.append((phase, _jax_np(js, snames), _jax_np(ji, mnames),
-                    to_numpy(ts), to_numpy(ti)))
+        out.append((phase, a, _jax_np(js, snames), _jax_np(ji, mnames)))
 
     keep = np.ones((M, M, C), bool)
-    jfull, tfull = jax.jit(jeng.build_round(cfg, spec)), teng.build_round(cfg_t, spec_t)
+    jfull = jax.jit(jeng.build_round(cfg, spec))
     hup0 = np.zeros((M, C), bool)
     hup0[0] = True
-    run("settle", jfull, tfull, args(keep, hup=hup0))
+    run("settle", jfull, args(keep, hup=hup0))
     for _ in range(drive.SETTLE_MAX_ROUNDS):
-        run("settle", jfull, tfull, args(keep))
-        if (out[-1][1]["role"] == 3).sum() == C and (out[-1][2]["type"] != 0).sum() == 0:
+        run("settle", jfull, args(keep))
+        if (out[-1][2]["role"] == 3).sum() == C and (out[-1][3]["type"] != 0).sum() == 0:
             break
 
-    jst, tst = jax.jit(jeng.build_round(steady, spec)), teng.build_round(steady_t, spec_t)
+    jst = jax.jit(jeng.build_round(steady, spec))
     for _ in range(STEADY):
-        run("steady", jst, tst, args(keep, prop=True))
+        run("steady", jst, args(keep, prop=True))
 
     rng = np.random.default_rng(SEED)
     cut = keep.copy()
@@ -109,8 +103,64 @@ def traj():
         cut[f, :, c] = False
         cut[:, f, c] = False
     for r in range(DROP_ROUNDS + AFTER_DROP):
-        run("drop", jst, tst, args(cut if r < DROP_ROUNDS else keep, prop=True))
+        run("drop", jst, args(cut if r < DROP_ROUNDS else keep, prop=True))
     return out
+
+
+def pin_trajectory(rows) -> dict:
+    """The npz arrays that pin jax_trajectory's rows (``round/`` keys)."""
+    arrays = {"round/phases": np.array([r[0] for r in rows])}
+    for i, (_, a, js, ji) in enumerate(rows):
+        arrays.update({f"round/{i}/arg/{j}": x for j, x in enumerate(a)})
+        arrays.update({f"round/{i}/state/{k}": v for k, v in js.items()})
+        arrays.update({f"round/{i}/wire/{k}": v for k, v in ji.items()})
+    return arrays
+
+
+def pinned_trajectory() -> list:
+    """jax_trajectory's rows as tests/make_chaos_run_pins.py pinned them."""
+    z = _pin_arrays()
+    rows = []
+    for i, phase in enumerate(z["round/phases"].tolist()):
+        part = lambda what: {k.rsplit("/", 1)[1]: v for k, v in z.items()  # noqa: E731
+                             if k.startswith(f"round/{i}/{what}/")}
+        a = part("arg")
+        rows.append((phase, tuple(a[str(j)] for j in range(len(a))), part("state"),
+                     part("wire")))
+    return rows
+
+
+def trajectory(jrows) -> list:
+    """Per round: (phase, jax state, jax wire, port state, port wire) as
+    numpy dicts, the port's restricted settle and steady programs run on
+    the JAX rounds' inputs."""
+    spec_t = drive.bench_spec()
+    cfg_t = drive.settle_config(spec_t)
+    steady_t = drive.steady_config(cfg_t)
+    ts = teng.init_fleet(spec_t, C, seed=SEED, device="cpu")
+    ti = teng.empty_inbox(spec_t, C, True, cfg_t.inbox_bound, device="cpu")
+    steps = {"settle": teng.build_round(cfg_t, spec_t),
+             "steady": teng.build_round(steady_t, spec_t)}
+    steps["drop"] = steps["steady"]
+    out = []
+    for phase, a, js, ji in jrows:
+        if a:
+            ts, ti = steps[phase](ts, ti, *[torch.from_numpy(np.array(x)) for x in a])
+        out.append((phase, js, ji, to_numpy(ts), to_numpy(ti)))
+    return out
+
+
+@pytest.fixture(scope="module")
+def traj():
+    """The trajectory, the JAX side from the pin (CHAOS_RUN_PIN.npz)."""
+    return trajectory(pinned_trajectory())
+
+
+@pytest.mark.slow
+def test_state_and_wire_equal_every_round_live():
+    for i, (phase, js, ji, ts, ti) in enumerate(trajectory(jax_trajectory())):
+        assert _diff(js, ts) == [], f"{phase} round {i}: state leaves differ"
+        assert _diff(ji, ti) == [], f"{phase} round {i}: wire leaves differ"
 
 
 @pytest.mark.parametrize("phase", ["init", "settle", "steady", "drop"])
